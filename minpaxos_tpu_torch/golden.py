@@ -6,8 +6,9 @@ kills down to a lost majority, revival, a leader change) driven through
 states, routed pending inboxes, alive mask, in the JAX package's leaf
 order and dtypes — after every step. The JAX package's
 ``tests/fixtures/kernel_golden.json`` records the reference digests for
-the ``minpaxos`` and ``classic`` protocols at ``GOLDEN_SHAPE``; this
-module only reads them.
+the ``minpaxos``, ``classic`` and ``mencius`` protocols at ``GOLDEN_SHAPE``;
+this module only reads them. Mencius has no elections: its scenario
+proposes to several owners and kills and revives owners instead.
 """
 
 from __future__ import annotations
@@ -19,13 +20,14 @@ from pathlib import Path
 import numpy as np
 
 from minpaxos_tpu_torch.models.cluster import Cluster, numpy_leaves
+from minpaxos_tpu_torch.models.mencius import MenciusCluster
 from minpaxos_tpu_torch.models.minpaxos import MinPaxosConfig
 from minpaxos_tpu_torch.models.paxos import classic_config
 from minpaxos_tpu_torch.wire.messages import Op
 
 GOLDEN_SHAPE = dict(n_replicas=5, window=64, inbox=32, exec_batch=16,
                     kv_pow2=8, catchup_rows=8, recovery_rows=8)
-PROTOCOLS = ("minpaxos", "classic")
+PROTOCOLS = ("minpaxos", "classic", "mencius")
 FIXTURE = Path(__file__).resolve().parent.parent / "tests" / "fixtures" / "kernel_golden.json"
 
 
@@ -38,9 +40,12 @@ def digest(cs) -> str:
 
 def drive(protocol: str, device="cuda") -> list[str]:
     """Run the scenario; one state digest per step."""
-    cfg = (classic_config(**GOLDEN_SHAPE) if protocol == "classic"
-           else MinPaxosConfig(**GOLDEN_SHAPE))
-    cl = Cluster(cfg, ext_rows=8, device=device)
+    if protocol == "mencius":
+        cl = MenciusCluster(MinPaxosConfig(**GOLDEN_SHAPE), ext_rows=8, device=device)
+    else:
+        cfg = (classic_config(**GOLDEN_SHAPE) if protocol == "classic"
+               else MinPaxosConfig(**GOLDEN_SHAPE))
+        cl = Cluster(cfg, ext_rows=8, device=device)
     rng = np.random.default_rng(7)
     digests: list[str] = []
 
@@ -56,6 +61,24 @@ def drive(protocol: str, device="cuda") -> list[str]:
         mids = np.arange(n) + len(digests) * 100 + client * 10_000
         cl.propose(ops, keys, vals, mids, client_id=client, to=to)
 
+    if protocol == "mencius":
+        propose(10, client=1, to=0)
+        propose(7, client=2, to=1)
+        step(6)
+        cl.kill(2)
+        propose(6, client=1, to=3)
+        step(6)
+        cl.kill(1)
+        cl.kill(3)
+        propose(4, client=2, to=0)
+        step(8)
+        cl.revive(1)
+        cl.revive(2)
+        cl.revive(3)
+        step(10)
+        propose(5, client=1, to=2)
+        step(8)
+        return digests
     cl.elect(0)
     step(2)
     propose(20, client=1, to=0)

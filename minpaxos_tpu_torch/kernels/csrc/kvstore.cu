@@ -348,11 +348,9 @@ MP_EXPORT int mp_kv_insert(int* key_hi, int* key_lo, int* val, int* slot,
                       (size_t)((E + 31) / 32) * 4 +
                       (size_t)(3 * DISPLACE_ROUNDS + 1) * 4;
   if (smem > 227 * 1024) return MP_ERR_SHAPE;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        mp_kv_insert_k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  static size_t optin = 0;
+  const int oe = mp_smem_optin((const void*)mp_kv_insert_k, smem, &optin);
+  if (oe) return oe;
   mp_kv_insert_k<<<(int)rows, threads, smem, s>>>(
       key_hi, key_lo, val, slot, dropped, khi, klo, v, del, valid, E, C, L);
   return (int)cudaGetLastError();

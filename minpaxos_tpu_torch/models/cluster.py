@@ -59,13 +59,16 @@ def validate_config_quorums(cfg: MinPaxosConfig) -> None:
             raise ValueError(f"fast_path needs q_fast == n ({n})")
 
 
-def init_cluster(cfg: MinPaxosConfig, n_groups: int, device="cuda") -> ClusterState:
+def init_cluster(cfg: MinPaxosConfig, n_groups: int, device="cuda",
+                 init_fn=init_replica) -> ClusterState:
+    """G groups of fresh replica states (``init_fn``: init_replica, or
+    models/mencius.py init_mencius), empty inboxes, all alive."""
     dev = resolve_device(device)
     r = cfg.n_replicas
     b = n_groups * r
     me = torch.arange(r, dtype=I32, device=dev).repeat(n_groups)
     return ClusterState(
-        states=init_replica(cfg, me, dev),
+        states=init_fn(cfg, me, dev),
         pending=MsgBatch.empty(b, cfg.inbox, dev),
         alive=torch.ones((n_groups, r), dtype=torch.bool, device=dev),
     )
@@ -121,8 +124,12 @@ def cluster_step_impl(cfg: MinPaxosConfig, cs: ClusterState, ext: MsgBatch,
 
 def from_numpy_state(tree, device="cuda") -> ClusterState:
     """A JAX ClusterState given as numpy arrays ([R, ...] for one
-    cluster, [G, R, ...] for sharded) -> the port's ClusterState."""
+    cluster, [G, R, ...] for sharded) -> the port's ClusterState. States
+    with a ``crt_own`` field are Mencius states."""
+    from minpaxos_tpu_torch.models.mencius import MenciusState
+
     dev = resolve_device(device)
+    cls = MenciusState if hasattr(tree.states, "crt_own") else ReplicaState
     alive = np.asarray(tree.alive)
     g_r = (1,) + alive.shape if alive.ndim == 1 else alive.shape
     b = int(np.prod(g_r))
@@ -130,7 +137,7 @@ def from_numpy_state(tree, device="cuda") -> ClusterState:
         torch.from_numpy(np.array(getattr(tree.pending, f)).reshape(b, -1)).to(dev)
         for f in MsgBatch._fields])
     return ClusterState(
-        states=_state_from_numpy(tree.states, dev),
+        states=_state_from_numpy(tree.states, dev, cls),
         pending=pending,
         alive=torch.from_numpy(alive.reshape(g_r).copy()).to(dev),
     )
@@ -199,11 +206,14 @@ class KeyBuf:
         return v[np.minimum(pos, len(v) - 1)] == keys
 
 
-def collect_exec_replies(cl, execr: ExecResult) -> None:
+def collect_exec_replies(cl, execr: ExecResult, *, drop_skip_fills: bool = False,
+                         record_inst: bool = True) -> None:
     """Host side of the client reply: one transfer per field, a
     vectorized prefilter against the replica's proposed keys, then the
     per-row reply dict (exactly-once: re-executions log as
-    duplicates)."""
+    duplicates). ``drop_skip_fills`` also drops Mencius SKIP fills (op 0,
+    cmd_id 0); ``record_inst`` adds each reply's slot, exec_lo + row
+    (meaningless under Mencius's out-of-order execution)."""
     counts = execr.count.cpu().numpy()
     e_vhi, e_vlo = execr.val_hi.cpu().numpy(), execr.val_lo.cpu().numpy()
     e_found, e_op = execr.found.cpu().numpy(), execr.op.cpu().numpy()
@@ -218,6 +228,8 @@ def collect_exec_replies(cl, execr: ExecResult) -> None:
             continue
         cid_n, mid_n, op_n = e_cid[rep][:n], e_mid[rep][:n], e_op[rep][:n]
         cand = cid_n >= 0  # no-op fills carry client -1
+        if drop_skip_fills:
+            cand &= ~((op_n == 0) & (mid_n == 0))
         if not cand.any():
             continue
         cand &= keys.contains(pack_reply_key(cid_n, mid_n))
@@ -231,7 +243,9 @@ def collect_exec_replies(cl, execr: ExecResult) -> None:
             if cl._proposed_at.get((cid, mid)) != rep:
                 continue
             rep_row = dict(ok=True, value=int(vals[j]), found=bool(founds[j]),
-                           op=int(ops[j]), inst=int(e_lo[rep]) + int(i))
+                           op=int(ops[j]))
+            if record_inst:
+                rep_row["inst"] = int(e_lo[rep]) + int(i)
             if (cid, mid) in cl.replies:
                 cl.reply_log.append(dict(duplicate=True, client_id=cid, cmd_id=mid))
             cl.replies[(cid, mid)] = rep_row
@@ -245,12 +259,13 @@ class Cluster:
     ``device`` defaults to the card; ``device="cpu"`` runs the plain
     PyTorch path."""
 
-    def __init__(self, cfg: MinPaxosConfig, ext_rows: int = 1024, device="cuda"):
+    def __init__(self, cfg: MinPaxosConfig, ext_rows: int = 1024, device="cuda",
+                 init_fn=init_replica):
         validate_config_quorums(cfg)
         self.cfg = cfg
         self.ext_rows = ext_rows
         self.device = resolve_device(device)
-        self.cs = init_cluster(cfg, 1, self.device)
+        self.cs = init_cluster(cfg, 1, self.device, init_fn)
         self._ext_queue: list[tuple[int, dict]] = []
         self.replies: dict[tuple[int, int], dict] = {}
         self.reply_log: list[dict] = []

@@ -35,8 +35,7 @@ import torch
 
 from minpaxos_tpu_torch.ops.ackruns import (
     compress_ack_runs,
-    pack_vote_bits,
-    range_vote_coverage,
+    range_vote_bits,
     scatter_vote_bits,
 )
 from minpaxos_tpu_torch.ops.kvstore import KVState, kv_apply_batch, kv_init
@@ -527,13 +526,13 @@ def replica_step_impl(cfg: MinPaxosConfig, state: ReplicaState, inbox: MsgBatch,
                       & (take(st.cmd_id, ar_safe) == inbox.val_lo)
                       & (take(st.client_id, ar_safe) == inbox.client_id))
         ar_ok = ar_ok & ((inbox.op != 2) | fast_match)
-    vote_cov = range_vote_coverage(ar_ok, inbox.src, inbox.inst, inbox.cmd_id,
-                                   st.window_base, S, R)
+    vote_bits = range_vote_bits(ar_ok, inbox.src, inbox.inst, inbox.cmd_id,
+                                st.window_base, S, R)
     reply_src = where(is_accept_reply | is_prep_reply, inbox.src.clamp(0, R - 1), R)
     pc_seen = scatter_max(R, reply_src, inbox.last_committed,
                           torch.ones_like(is_prep), -(2 ** 30))
     replied = pc_seen[:, :R] > -(2 ** 30)
-    st.votes = st.votes | pack_vote_bits(vote_cov)
+    st.votes = st.votes | vote_bits
     st.max_recv_ballot = torch.maximum(
         st.max_recv_ballot, masked_max(inbox.ballot, is_accept_reply, NO_BALLOT))
     st.peer_commits = where(replied, pc_seen[:, :R], st.peer_commits)
@@ -736,12 +735,15 @@ def _field(tree, name):
     return tree[name] if isinstance(tree, dict) else getattr(tree, name)
 
 
-def from_numpy_state(tree, device="cuda") -> ReplicaState:
-    """A JAX ReplicaState given as numpy arrays (leading axes [R] or
-    [G, R], flattened here to B) -> the port's ReplicaState, leaf for
-    leaf. votes/pvotes widen from uint16 to int32."""
+def from_numpy_state(tree, device="cuda", cls=None):
+    """A JAX replica state (ReplicaState, or MenciusState when ``cls``
+    says so) given as numpy arrays (leading axes [R] or [G, R],
+    flattened here to B) -> the port's state of type ``cls`` (default
+    ReplicaState), leaf for leaf. votes/pvotes widen from uint16 to
+    int32."""
     from minpaxos_tpu_torch.device import resolve_device
 
+    cls = ReplicaState if cls is None else cls
     dev = resolve_device(device)
     me = np.asarray(_field(tree, "me"))
     lead = me.shape
@@ -756,14 +758,15 @@ def from_numpy_state(tree, device="cuda") -> ReplicaState:
 
     kv_tree = _field(tree, "kv")
     kv = KVState(*[conv(_field(kv_tree, f), f) for f in _KV_FIELDS])
-    vals = {f: conv(_field(tree, f), f) for f in ReplicaState._fields if f != "kv"}
-    return ReplicaState(**vals, kv=kv)
+    vals = {f: conv(_field(tree, f), f) for f in cls._fields if f != "kv"}
+    return cls(**vals, kv=kv)
 
 
-def to_numpy_state(state: ReplicaState, lead_shape=None) -> ReplicaState:
-    """The port's state -> a ReplicaState of numpy arrays in the JAX
-    layout and dtypes (votes/pvotes as uint16), leading axis reshaped to
-    ``lead_shape`` (e.g. (R,) or (G, R)); leaves in JAX tree order."""
+def to_numpy_state(state, lead_shape=None):
+    """The port's state (ReplicaState or MenciusState) -> the same
+    NamedTuple of numpy arrays in the JAX layout and dtypes
+    (votes/pvotes as uint16), leading axis reshaped to ``lead_shape``
+    (e.g. (R,) or (G, R)); leaves in JAX tree order."""
 
     def conv(t, name):
         x = t.detach().cpu().numpy()
@@ -773,15 +776,16 @@ def to_numpy_state(state: ReplicaState, lead_shape=None) -> ReplicaState:
             x = x.reshape(tuple(lead_shape) + x.shape[1:])
         return np.ascontiguousarray(x)
 
+    cls = type(state)
     kv = KVState(*[conv(getattr(state.kv, f), f) for f in _KV_FIELDS])
-    vals = {f: conv(getattr(state, f), f) for f in ReplicaState._fields if f != "kv"}
-    return ReplicaState(**vals, kv=kv)
+    vals = {f: conv(getattr(state, f), f) for f in cls._fields if f != "kv"}
+    return cls(**vals, kv=kv)
 
 
-def state_leaves(state: ReplicaState) -> list:
-    """Leaves of a (numpy) ReplicaState in JAX tree_leaves order."""
+def state_leaves(state) -> list:
+    """Leaves of a (numpy) replica state in JAX tree_leaves order."""
     out = []
-    for f in ReplicaState._fields:
+    for f in type(state)._fields:
         v = getattr(state, f)
         if f == "kv":
             out.extend(v)

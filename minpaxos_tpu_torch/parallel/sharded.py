@@ -22,7 +22,13 @@ from minpaxos_tpu_torch.models.cluster import (
     cluster_step_impl,
     init_cluster,
 )
-from minpaxos_tpu_torch.models.minpaxos import MinPaxosConfig, become_leader
+from minpaxos_tpu_torch.models.mencius import init_mencius, mencius_step_impl
+from minpaxos_tpu_torch.models.minpaxos import (
+    MinPaxosConfig,
+    become_leader,
+    init_replica,
+    replica_step_impl,
+)
 from minpaxos_tpu_torch.ops.util import I32, argmin_first
 from minpaxos_tpu_torch.ops.workload import (
     assemble_batch,
@@ -35,8 +41,9 @@ from minpaxos_tpu_torch.ops.workload import (
 LATENCY_BINS = 512
 
 
-def init_sharded(cfg: MinPaxosConfig, n_shards: int, device="cuda") -> ClusterState:
-    return init_cluster(cfg, n_shards, device)
+def init_sharded(cfg: MinPaxosConfig, n_shards: int, device="cuda",
+                 init_fn=init_replica) -> ClusterState:
+    return init_cluster(cfg, n_shards, device, init_fn)
 
 
 def elect_all(cfg: MinPaxosConfig, ss: ClusterState, leader: int) -> ClusterState:
@@ -85,9 +92,13 @@ def shard_cursors(cfg: MinPaxosConfig, leader: int, ss: ClusterState):
 def sharded_run_resident(cfg: MinPaxosConfig, n_shards: int, ext_rows: int,
                          k_rounds: int, ss: ClusterState, inject_round: torch.Tensor,
                          lat_hist: torch.Tensor, n_proposals: int, leader: int,
-                         round0: int, seed: int = 0, key_space: int = 1 << 20):
+                         round0: int, seed: int = 0, key_space: int = 1 << 20,
+                         step_impl=replica_step_impl):
     """k rounds with nothing read back: returns (ss', inject_round',
     lat_hist', committed_total, in_flight), the last two 0-d tensors.
+    ``step_impl`` is the replica step (Mencius: mencius_step_impl, with
+    ``leader`` -1 so every owner gets the round's proposals; the
+    cursors are then read at replica 0).
 
     ``inject_round`` [G, W]: for each in-flight slot (ring position
     slot % W), the round it was assigned (-1 = before the measured
@@ -112,7 +123,7 @@ def sharded_run_resident(cfg: MinPaxosConfig, n_shards: int, ext_rows: int,
         c_prev = crt[:, cursor_rep].clone()
         ext = assemble_batch(r, n_shards, ext_rows, n_proposals, leader, rnd,
                              keys[t], vals[t])
-        ss, _, _, _ = cluster_step_impl(cfg, ss, ext)
+        ss, _, _, _ = cluster_step_impl(cfg, ss, ext, step_impl)
         u_new = ss.states.committed_upto.view(n_shards, r)[:, cursor_rep]
         c_new = ss.states.crt_inst.view(n_shards, r)[:, cursor_rep]
         cp = c_prev[:, None]
@@ -131,23 +142,34 @@ def sharded_run_resident(cfg: MinPaxosConfig, n_shards: int, ext_rows: int,
 
 class ShardedCluster:
     """Host wrapper: boot -> elect -> device-made proposals -> rounds.
+    ``protocol`` is "minpaxos" (classic too, by its config flag) or
+    "mencius" (no elections: every owner serves the proposals).
     ``device`` defaults to the card and raises without one."""
 
     def __init__(self, cfg: MinPaxosConfig, n_shards: int, ext_rows: int = 512,
-                 key_space: int = 1 << 20, seed: int = 0, device="cuda"):
+                 key_space: int = 1 << 20, seed: int = 0, device="cuda",
+                 protocol: str = "minpaxos"):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.n_shards = n_shards
         self.ext_rows = ext_rows
         self.seed = seed
         self.key_space = key_space
-        self.leader = 0
-        self.ss = init_sharded(cfg, n_shards, self.device)
+        self.protocol = protocol
+        if protocol == "mencius":
+            init_fn, self._step_impl = init_mencius, mencius_step_impl
+            self.leader = -1  # multi-leader: proposals go to every owner
+        else:
+            init_fn, self._step_impl = init_replica, replica_step_impl
+            self.leader = 0
+        self.ss = init_sharded(cfg, n_shards, self.device, init_fn)
         self._seed = 0  # round counter: the workload stream's position
         self._inject_round = None
         self._lat_hist = None
 
     def elect(self, leader: int = 0) -> None:
+        if self.protocol == "mencius":
+            raise ValueError("mencius has no elections (rotating ownership)")
         self.ss = elect_all(self.cfg, self.ss, leader)
         self.leader = leader
         self.step(0)  # deliver PREPAREs
@@ -158,7 +180,7 @@ class ShardedCluster:
                             min(n_proposals, self.ext_rows), self.leader,
                             self._seed, self.seed, self.key_space, self.device)
         self._seed += 1
-        self.ss, _, _, _ = cluster_step_impl(self.cfg, self.ss, ext)
+        self.ss, _, _, _ = cluster_step_impl(self.cfg, self.ss, ext, self._step_impl)
 
     def committed(self) -> tuple[int, int, int]:
         tot, lo, hi = commit_totals(self.cfg, self.ss)
@@ -178,7 +200,7 @@ class ShardedCluster:
          in_flight) = sharded_run_resident(
             self.cfg, self.n_shards, self.ext_rows, k_rounds, self.ss,
             self._inject_round, self._lat_hist, min(n_proposals, self.ext_rows),
-            self.leader, self._seed, self.seed, self.key_space)
+            self.leader, self._seed, self.seed, self.key_space, self._step_impl)
         self._seed += k_rounds
         return int(committed), int(in_flight)
 

@@ -18,6 +18,8 @@ import torch
 
 pytestmark = pytest.mark.cuda
 
+torch.set_num_threads(1)
+
 
 @pytest.fixture
 def dev():
@@ -108,6 +110,57 @@ def test_kv_kernels_and_apply(dev):
         assert torch.equal(out.cpu(), out_c) and torch.equal(found.cpu(), found_c)
     assert displaced > 0  # the displacement pass ran
     assert int(kv.dropped.sum()) > 0  # and rows it could not place dropped
+
+
+@pytest.mark.parametrize("stride", [1, 5])
+def test_ackruns_kernels(dev, stride):
+    from minpaxos_tpu_torch.ops import ackruns
+
+    g = _gen(dev, 10 + stride)
+    B, M, S, R = 12, 300, 256, 5
+    is_acc = torch.rand((B, M), device=dev, generator=g) < 0.8
+    src = torch.randint(-1, R + 1, (B, M), device=dev, dtype=torch.int32, generator=g)
+    src = torch.repeat_interleave(src[:, ::6], 6, dim=1)[:, :M].contiguous()
+    step = torch.where(torch.rand((B, M), device=dev, generator=g) < 0.85, stride,
+                       torch.randint(1, 2 * R, (B, M), device=dev, generator=g))
+    inst = (torch.cumsum(step, 1) - 40).to(torch.int32)
+    ok = torch.rand((B, M), device=dev, generator=g) < 0.9
+    ballot = torch.randint(0, 2, (B, M), device=dev, dtype=torch.int32, generator=g)
+    bal = ballot if stride > 1 else None
+    got = ackruns.compress_ack_runs(is_acc, src, inst, ok, ballot=bal, stride=stride)
+    want = ackruns._compress_plain(is_acc, src, inst, ok, bal, stride)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    count = torch.randint(0, 40, (B, M), device=dev, dtype=torch.int32, generator=g)
+    wb = torch.randint(0, 600, (B,), device=dev, dtype=torch.int32, generator=g)
+    got = ackruns.range_vote_bits(ok, src, inst, count, wb, S, R, stride=stride)
+    want = ackruns.pack_vote_bits(ackruns.range_vote_coverage(
+        ok, src, inst, count, wb, S, R, stride=stride))
+    assert torch.equal(got, want) and int((got != 0).sum()) > 0
+    idx = torch.randint(-2, S + 3, (B, M), device=dev, dtype=torch.int32, generator=g)
+    assert torch.equal(ackruns.scatter_vote_bits(S, idx, src, ok, R),
+                       ackruns._scatter_vote_bits_plain(S, idx, src, ok, R))
+
+
+@pytest.mark.parametrize("s,e", [(64, 12), (100, 50), (4096, 320)])
+def test_exec_select_kernel(dev, s, e):
+    from minpaxos_tpu_torch.ops import mencius_exec
+
+    g = _gen(dev, s)
+    B = 40
+    key_hi = torch.randint(-1, 1, (B, s), device=dev, dtype=torch.int32, generator=g)
+    key_lo = torch.randint(-3, 4 + s // 16, (B, s), device=dev, dtype=torch.int32, generator=g)
+    p = torch.tensor([0.05, 0.15, 0.25, 0.25, 0.2, 0.1], device=dev)
+    code = torch.multinomial(p, B * s, replacement=True, generator=g).view(B, s)
+    status = torch.tensor([0, 3, 4, 4, 4, 5], device=dev, dtype=torch.uint8)[code]
+    op = torch.randint(0, 4, (B, s), device=dev, dtype=torch.uint8, generator=g)
+    executed = (status == 5) | (torch.rand((B, s), device=dev, generator=g) < 0.05)
+    wb = torch.randint(-5, 100, (B,), device=dev, dtype=torch.int32, generator=g)
+    eu = wb + torch.randint(-2, 10, (B,), device=dev, dtype=torch.int32, generator=g)
+    cu = eu + torch.randint(-2, s // 2, (B,), device=dev, dtype=torch.int32, generator=g)
+    args = (key_hi, key_lo, status, op, executed, wb, cu, eu, e)
+    got = mencius_exec.exec_select(*args)
+    want = mencius_exec._exec_select_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_golden_digests_on_the_card(dev):

@@ -11,8 +11,11 @@ failure names the first divergent step. The fixture is only read.
 from __future__ import annotations
 
 import pytest
+import torch
 
 from minpaxos_tpu_torch.golden import PROTOCOLS, drive, first_divergence, load_fixture
+
+torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("protocol", PROTOCOLS)

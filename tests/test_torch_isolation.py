@@ -11,6 +11,8 @@ import sys
 import pytest
 import torch
 
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "minpaxos_tpu_torch")
 
@@ -79,6 +81,12 @@ def test_entry_points_default_to_the_card():
         ShardedCluster(cfg, 2)
     with pytest.raises(RuntimeError, match="cuda"):
         Cluster(cfg)
+    from minpaxos_tpu_torch.models.mencius import MenciusCluster
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        MenciusCluster(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ShardedCluster(cfg, 2, protocol="mencius")
 
 
 def test_kernel_wrappers_never_fall_back_for_non_cpu_tensors():
@@ -92,3 +100,35 @@ def test_kernel_wrappers_never_fall_back_for_non_cpu_tensors():
         K.on_cpu(cpu, meta)
     with pytest.raises(RuntimeError, match="CUDA tensor"):
         K.cuda_arg(cpu, torch.float32, "x")
+
+    # K5 (ackruns) and K6 (exec selector): a tensor off the CPU takes the
+    # kernel or raises, and the kernel wrappers refuse CPU tensors
+    from minpaxos_tpu_torch.ops import ackruns, mencius_exec
+
+    def ts(device):
+        i = torch.zeros((2, 8), dtype=torch.int32, device=device)
+        b = torch.zeros((2, 8), dtype=torch.bool, device=device)
+        u = torch.zeros((2, 8), dtype=torch.uint8, device=device)
+        v = torch.zeros(2, dtype=torch.int32, device=device)
+        return i, b, u, v
+
+    i, b, u, v = ts("cpu")
+    mi, mb, mu, _ = ts("meta")
+    with pytest.raises(RuntimeError):
+        ackruns.compress_ack_runs(mb, i, i, b)
+    with pytest.raises(RuntimeError):
+        ackruns.compress_ack_runs(b, i, i, b, ballot=mi, stride=5)
+    with pytest.raises(RuntimeError):
+        ackruns.range_vote_bits(b, i, mi, i, v, 8, 5, stride=5)
+    with pytest.raises(RuntimeError):
+        ackruns.scatter_vote_bits(8, i, mi, b, 5)
+    with pytest.raises(RuntimeError):
+        mencius_exec.exec_select(i, i, mu, u, b, v, v, v, 4)
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        ackruns._compress_kernel(b, i, i, b, None, 1)
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        ackruns._vote_bits_kernel(b, i, i, i, v, 8, 5, 5)
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        ackruns._scatter_vote_bits_kernel(8, i, i, b, 5)
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        mencius_exec._exec_select_kernel(i, i, u, u, b, v, v, v, 4)

@@ -32,6 +32,8 @@ from minpaxos_tpu_torch.ops import winner as twin
 from minpaxos_tpu_torch.ops import workload as twl
 from minpaxos_tpu_torch.wire.messages import Op
 
+torch.set_num_threads(1)
+
 
 def T(x):
     return torch.from_numpy(np.array(x))

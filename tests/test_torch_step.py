@@ -27,6 +27,8 @@ from minpaxos_tpu_torch.models import minpaxos as tmp
 from minpaxos_tpu_torch.models.paxos import classic_config as torch_classic
 from minpaxos_tpu_torch.wire.messages import MsgKind
 
+torch.set_num_threads(1)
+
 SHAPE = dict(n_replicas=5, window=32, inbox=24, exec_batch=8, kv_pow2=5,
              catchup_rows=4, recovery_rows=4, noop_delay=3, retention=4)
 R, M, STEPS = 5, 24, 14
