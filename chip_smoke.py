@@ -9,8 +9,12 @@ Phases, each printing one JSON line:
               versions, and the kernels' build from kernels/csrc.
 2. compare  — every hand-written kernel against its plain PyTorch twin
               on the card, at the shapes of each path below (MinPaxos,
-              then Mencius), on seeded inputs; integer results,
-              compared for equality.
+              Mencius, then one TCP replica server: B = 1, 2^18-way KV
+              table, K7 on the leader's outputs of a live exchange), on
+              seeded inputs; integer results, compared for equality.
+              Besides: K7 at a batch of 1,280 replicas, K4 insert on
+              2^18-way tables 90% full, K5 vote bits with five replicas
+              and K6 at the server's default window of 16,384 slots.
               Device times of kernel, plain version and, where one
               PyTorch call computes the same function, that call: each
               captured N times in one CUDA graph and replayed between
@@ -37,6 +41,22 @@ Phases, each printing one JSON line:
               plus that every owner proposed exactly p rows in every
               round (its crt_own), so slot order equals round order for
               the read-back's replay; counts set to 0 just before it.
+6. tcp      — the TCP serving deployment, BASELINE config 1 at the shape
+              bench_tcp.py runs: a master and three durable MinPaxos
+              replica servers (-window 2048 -inbox 1024 -kvpow2 18
+              -execbatch 128), each its own process and CUDA context on
+              this card, 20,000 checked PUTs closed loop (batch 512) from
+              this process, then a follower stopped, 2,000 more PUTs,
+              the follower revived from its stable store until it
+              catches up; every written key read back through READ
+              frames; the three stable stores' committed prefixes held
+              against each other; ops/s, client p50/p99, wall and device
+              ms per dispatch, peak memory and kernel launches of every
+              server (printed by each server on stop). Before it, the
+              dispatch_profile line: one server dispatch at this shape
+              (the step and K7 on the leader's inbox from the compare
+              phase's exchange) under torch.profiler in this process —
+              device busy ms and kernel launches per dispatch.
 
 Then the contract lines: the kernels table, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Any failed phase
@@ -70,12 +90,24 @@ EXT = 512
 M_P, M_INBOX, M_EXT, M_E = 64, 2048, 64, 320
 M_CU, M_REC, M_NOOP, M_KV_POW2, M_KEY_SPACE = 128, 64, 8, 14, 8192
 DISPATCHES = 4  # measured k-round dispatches; the rate skips the first
+# the TCP deployment: BASELINE config 1 at the shape bench_tcp.py:56 runs
+# (master + 3 durable MinPaxos replica servers, one process each),
+# gen_workload(20000, seed=42) PUTs closed loop in batches of 512 with
+# -check, then a follower stop / 2,000 PUTs / revive leg; the server
+# CLI's catch-up and recovery rows (256) and its other defaults
+TCP_N, TCP_W, TCP_INBOX, TCP_E, TCP_KV_POW2 = 3, 2048, 1024, 128, 18
+TCP_CU = TCP_REC = 256
+TCP_OPS, TCP_EXTRA, TCP_BATCH = 20000, 2000, 512
+TCP_SHAPE = ["-window", str(TCP_W), "-inbox", str(TCP_INBOX),
+             "-kvpow2", str(TCP_KV_POW2), "-execbatch", str(TCP_E)]
+TCP_LIMIT_S = 420.0  # the phase's own time limit
 
 
 class Shapes(NamedTuple):
-    """One path's kernel shapes: B = groups x replicas rows, S window
-    slots, M inbox rows, E exec rows, C = 2^kv_pow2 KV ways, m_out outbox
-    rows per replica, cap inbox capacity, stride of the range acks."""
+    """One path's kernel shapes: B = groups x replicas rows (``batch``
+    when set), S window slots, M inbox rows, E exec rows, C = 2^kv_pow2
+    KV ways, m_out outbox rows per replica, cap inbox capacity, stride of
+    the range acks."""
 
     path: str
     groups: int
@@ -87,6 +119,7 @@ class Shapes(NamedTuple):
     m_out: int
     cap: int
     stride: int
+    batch: int = 0
 
 
 PATHS = {
@@ -94,6 +127,9 @@ PATHS = {
                        INBOX + EXT + REC_ROWS + 1 + 2 * CU_ROWS, INBOX, 1),
     "mencius": Shapes("mencius", G, R, W, M_INBOX + M_EXT, M_E, M_KV_POW2,
                       M_INBOX + M_EXT + 1 + 3 * M_CU + 3 * M_REC, M_INBOX, R),
+    # one replica server of the TCP deployment (B = 1 of 3 replicas)
+    "tcp": Shapes("tcp", 1, TCP_N, TCP_W, TCP_INBOX, TCP_E, TCP_KV_POW2,
+                  TCP_INBOX + TCP_REC + 1 + 2 * TCP_CU, TCP_INBOX, 1, batch=1),
 }
 # the kernels each path launches, as registered in minpaxos_tpu_torch.kernels
 KERNELS = {
@@ -103,6 +139,11 @@ KERNELS = {
     "mencius": ("route", "scatter_max", "seg_scan_max", "commit_frontier",
                 "kv_lookup", "kv_insert", "ack_runs", "vote_bits",
                 "scatter_vote_bits", "exec_select"),
+    # every replica server's step and packing (no routing: the
+    # transport delivers the rows)
+    "tcp": ("scatter_max", "seg_scan_max", "commit_frontier", "kv_lookup",
+            "kv_insert", "ack_runs", "vote_bits", "scatter_vote_bits",
+            "pack_outputs"),
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak
 # the published non-tensor-core rate (float32, 67 TFLOP/s); the kernels'
@@ -203,7 +244,7 @@ def compare_kernels(dev, seed: int, sh: Shapes) -> tuple[dict, float]:
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     G, R = sh.groups, sh.replicas
-    B = G * R
+    B = sh.batch or G * R
     M = sh.M  # inbox rows the step consumes
     S = sh.S
     E = sh.E  # exec_batch
@@ -279,25 +320,28 @@ def compare_kernels(dev, seed: int, sh: Shapes) -> tuple[dict, float]:
         ops=int((got.to(torch.int64) - start + 2).clamp(min=1).sum().item()),
         shapes=f"committed [{B},{S}], start [{B}] -> [{B}]")
 
-    # K1: the routing fabric over [12, G, N] pooled rows
-    cols = ri(-5, 1 << 20, (12, G, N))
-    cols[0] = torch.where(rb(0.6, (G, N)), ri(1, 30, (G, N)), 0)
-    u = torch.rand((G, N), device=dev, generator=g)
-    dst = torch.where(u < 0.5, -1, torch.where(u < 0.8, ri(0, R, (G, N)), -2)).to(torch.int32)
-    alive = ~rb(0.05, (G, R))
-    rt_k = lambda: segscatter.route(cols, dst, alive, M_OUT, CAP)  # noqa: E731
+    # K1: the routing fabric over [12, G, N] pooled rows (not on the
+    # TCP path: there the transport delivers the rows)
+    if sh.path != "tcp":
+        cols = ri(-5, 1 << 20, (12, G, N))
+        cols[0] = torch.where(rb(0.6, (G, N)), ri(1, 30, (G, N)), 0)
+        u = torch.rand((G, N), device=dev, generator=g)
+        dst = torch.where(u < 0.5, -1, torch.where(u < 0.8, ri(0, R, (G, N)), -2)).to(torch.int32)
+        alive = ~rb(0.05, (G, R))
+        rt_k = lambda: segscatter.route(cols, dst, alive, M_OUT, CAP)  # noqa: E731
 
-    def rt_p():
-        win, hit = segscatter.route_plan(cols[0], dst, alive, M_OUT, CAP)
-        return segscatter.gather_rows(cols, win, hit), hit
+        def rt_p():
+            win, hit = segscatter.route_plan(cols[0], dst, alive, M_OUT, CAP)
+            return segscatter.gather_rows(cols, win, hit), hit
 
-    res["route"] = dict(
-        err=max_abs_err(rt_k(), rt_p()), **times(rt_k, rt_p),
-        bytes=G * N * 4 * 2 + G * R + 12 * G * R * CAP * 4 + G * R * CAP,
-        ops=G * N * R * 8,  # destined test per (row, destination)
-        shapes=f"cols [12,{G},{N}], dst [{G},{N}] -> [12,{G},{R},{CAP}]")
+        res["route"] = dict(
+            err=max_abs_err(rt_k(), rt_p()), **times(rt_k, rt_p),
+            bytes=G * N * 4 * 2 + G * R + 12 * G * R * CAP * 4 + G * R * CAP,
+            ops=G * N * R * 8,  # destined test per (row, destination)
+            shapes=f"cols [12,{G},{N}], dst [{G},{N}] -> [12,{G},{R},{CAP}]")
 
-    # K4: the KV engine on [B, C] tables a quarter full, [B, E] rows
+    # K4: the KV engine on [B, C] tables (a quarter full at the MinPaxos
+    # shape), [B, E] rows
     kv = kvs.kv_init(KVP, B, dev)
 
     def prefill_keys(i):
@@ -469,6 +513,227 @@ def compare_kernels(dev, seed: int, sh: Shapes) -> tuple[dict, float]:
     return res, apply_err
 
 
+
+def tcp_cfg(n_replicas: int = TCP_N):
+    """The replica servers' MinPaxosConfig at TCP_SHAPE (cli/server.py's
+    construction with its defaults)."""
+    from minpaxos_tpu_torch.models.minpaxos import MinPaxosConfig
+
+    return MinPaxosConfig(n_replicas=n_replicas, window=TCP_W, inbox=TCP_INBOX,
+                          exec_batch=TCP_E, kv_pow2=TCP_KV_POW2, catchup_rows=TCP_CU,
+                          recovery_rows=TCP_REC, gossip_ticks=4, noop_delay=50)
+
+
+def _exchange(dev, cfg, seed: int, steps: int, per_step: int):
+    """A three-replica MinPaxos exchange at ``cfg`` on the card: replica
+    0 leads (prepared at ballot 16), takes ``per_step`` seeded PUTs per
+    step, and rows route between the replicas as the transport delivers
+    them. Yields (state, outbox, exec result) after every step."""
+    from minpaxos_tpu_torch.models import minpaxos as tmp
+    from minpaxos_tpu_torch.wire.messages import MsgKind, Op
+
+    r, m = cfg.n_replicas, cfg.inbox
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    st = tmp.init_replica(cfg, list(range(r)), device=dev)._replace(
+        default_ballot=torch.full((r,), 16, dtype=torch.int32, device=dev),
+        max_recv_ballot=torch.full((r,), 16, dtype=torch.int32, device=dev),
+        leader_id=torch.zeros(r, dtype=torch.int32, device=dev),
+        prepared=torch.arange(r, device=dev) == 0,
+        prepare_oks=torch.ones((r, r), dtype=torch.bool, device=dev))
+    st, ob, ex = tmp.replica_step_impl(cfg, st, tmp.MsgBatch.empty(r, m, dev))
+    for it in range(steps):
+        prev = st
+        cols = torch.zeros((12, r, m), dtype=torch.int32, device=dev)
+        stacked = torch.stack(list(ob.msgs))
+        for q in range(r):
+            rows = [stacked[:, s_, (ob.msgs.kind[s_] != 0)
+                            & ((ob.dst[s_] == q) | (ob.dst[s_] == -1))]
+                    for s_ in range(r) if s_ != q]
+            if q == 0:
+                p = torch.zeros((12, per_step), dtype=torch.int32, device=dev)
+                p[0], p[1], p[5] = int(MsgKind.PROPOSE), -1, int(Op.PUT)
+                p[7] = torch.randint(0, 100000, (per_step,), device=dev,
+                                     dtype=torch.int32, generator=g)
+                p[9] = torch.randint(1, 1 << 20, (per_step,), device=dev,
+                                     dtype=torch.int32, generator=g)
+                p[10] = per_step * it + torch.arange(per_step, device=dev)
+                p[11] = 7
+                rows.append(p)
+            x = torch.cat(rows, 1)[:, :m]
+            cols[:, q, :x.shape[1]] = x
+        inbox = tmp.MsgBatch(*cols.unbind(0))
+        st, ob, ex = tmp.replica_step_impl(cfg, st, inbox)
+        yield prev, inbox, st, ob, ex
+
+
+def _row_of(t, r):
+    return type(t)(*[_row_of(x, r) if isinstance(x, tuple) else x[r:r + 1]
+                     for x in t])
+
+
+def dispatch_profile(cfg, state, inbox, n: int = 10) -> dict:
+    """One replica server's dispatch (runtime/replica.py _packed_step:
+    the step and K7, k = 1) on ``inbox``, each from a fresh copy of
+    ``state``, n times under torch.profiler: device busy ms and CUDA
+    kernel launches per dispatch (the profiler's device events) and the
+    host wall per dispatch (to a synchronize)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from minpaxos_tpu_torch.models.minpaxos import replica_step_impl
+    from minpaxos_tpu_torch.runtime.replica import _packed_step
+
+    def copy(t):
+        return type(t)(*[copy(x) if isinstance(x, tuple) else x.clone() for x in t])
+
+    buf = {}
+
+    def alloc(k, b, w):
+        if (k, b, w) not in buf:
+            buf[(k, b, w)] = torch.empty((k, b, w), dtype=torch.int32, device=inbox.kind.device)
+        return buf[(k, b, w)]
+
+    for _ in range(3):
+        _packed_step(cfg, copy(state), inbox, replica_step_impl, 1, alloc=alloc)
+    states = [copy(state) for _ in range(n)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for s_ in states:
+            _packed_step(cfg, s_, inbox, replica_step_impl, 1, alloc=alloc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    dev_us = sum(getattr(e, "self_device_time_total", 0) for e in events)
+    return dict(dispatch_device_ms=dev_us / 1e3 / n,
+                dispatch_wall_ms_profiled=1e3 * wall / n,
+                dispatch_kernel_launches=sum(e.count for e in events) / n,
+                dispatch_inbox_rows=int((inbox.kind != 0).sum().item()))
+
+
+def compare_tcp(dev, seed: int) -> tuple[dict, dict]:
+    """K7 against its plain twin at one replica server's shapes (the
+    leader's row of a live exchange at TCP_SHAPE, timed), and at a batch
+    of 1,280 replicas with random anchor inputs of both protocol forms;
+    K4 insert on 2^18-way tables 90% full; K5 vote bits with five
+    replicas and K6 at the server's default window (16,384 slots).
+    Returns (the pack_outputs row, the extra checks, and under
+    ``_dispatch_probe`` the leader's state and real inbox of that
+    exchange for ``dispatch_profile``)."""
+    from types import SimpleNamespace as NS
+
+    from minpaxos_tpu_torch.models import minpaxos as tmp
+    from minpaxos_tpu_torch.ops import ackruns, mencius_exec, substeps
+    from minpaxos_tpu_torch.ops import kvstore as kvs
+
+    cfg = tcp_cfg()
+    best = None
+    for prev, inbox, st, ob, ex in _exchange(dev, cfg, seed, 6, TCP_BATCH):
+        if best is None or int(ex.count[0]) >= int(best[2].count[0]):
+            best = (_row_of(st, 0), _row_of(ob, 0), _row_of(ex, 0),
+                    _row_of(prev, 0), _row_of(inbox, 0))
+    st, ob, ex, prev, inbox = best
+    out = torch.empty((1, substeps.row_width(ob.msgs.kind.shape[1], TCP_E, TCP_N)),
+                      dtype=torch.int32, device=dev)
+    pk = lambda: substeps.pack_outputs(st, ob, ex, out)  # noqa: E731
+    pp = lambda: substeps._pack_plain(st, ob, ex, torch.empty_like(out), st.window_base)  # noqa: E731
+    # one PyTorch call for the same function: torch.cat of the pre-cast columns
+    m_out, m_in = ob.msgs.kind.shape[1], ob.acked.shape[1]
+    ack = torch.zeros((1, m_out), dtype=torch.int32, device=dev)
+    ack[:, :m_in] = ob.acked.to(torch.int32)
+    pre = ([c.to(torch.int32) for c in ob.msgs] + [ob.dst.to(torch.int32), ack]
+           + [getattr(ex, c).to(torch.int32) for c in substeps.EXEC_COLS]
+           + [torch.stack([x.to(torch.int32) for x in substeps._scalar_columns(
+               st, ex, st.window_base)], 1), st.peer_commits])
+    lib = lambda: torch.cat(pre, 1)  # noqa: E731
+    err = max_abs_err(pk().clone(), pp())
+    w = out.shape[1]
+    row = dict(err=err, **times(pk, pp, lib),
+               # each source column read once (12 + dst int32 at Mout, acked
+               # 1 B at M_in, 5 int32 + 1 bool exec columns at E, ~20 scalars,
+               # R peer commits), the row written once
+               bytes=13 * 4 * m_out + m_in + TCP_E * 21 + 20 * 4
+               + TCP_N * 4 + w * 4,
+               ops=w + 64,  # one move per output word; the anchor arithmetic
+               executed_in_row=int(ex.count[0]),
+               shapes=f"outbox [1,{m_out}] x 14, exec [1,{TCP_E}] x 6, scalars "
+                      f"-> packed row [1,{w}]")
+    extra = {"_dispatch_probe": (cfg, prev, inbox)}
+    # K7 at a batch: random state scalars in both anchor forms
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    B, S, R, Mo, Mi, E = 1280, 4096, 5, 2176, 1664, 512
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, device=dev, dtype=torch.int32, generator=g)
+
+    fr = ri(100, 5000, (B,))
+    common = dict(committed_upto=fr, window_base=fr - ri(0, 300, (B,)),
+                  crt_inst=fr + ri(-2, 40, (B,)), executed_upto=fr - ri(0, 30, (B,)),
+                  me=ri(0, R, (B,)), peer_commits=fr[:, None] + ri(-600, 3, (B, R)),
+                  kv=NS(dropped=ri(0, 2, (B,))))
+    states = [NS(**common, leader_id=ri(0, R, (B,)), prepared=ri(0, 2, (B,)) == 1,
+                 gossip_upto=fr - ri(-1, 3, (B,))),
+              NS(**common, status=ri(0, 6, (B, S)).to(torch.uint8),
+                 commit_sent=fr - ri(-3, 20, (B,)),
+                 tk_anchor=torch.where(ri(0, 2, (B,)) == 1, fr - ri(0, 50, (B,)), -1),
+                 crt_own=fr + ri(-5, 60, (B,)))]
+    obb = tmp.Outbox(tmp.MsgBatch(*[ri(-3, 1 << 20, (B, Mo)) for _ in range(12)]),
+                     ri(-2, R, (B, Mo)), ri(0, 2, (B, Mi)) == 1)
+    exb = tmp.ExecResult(ri(0, 100, (B,)), ri(0, E, (B,)), ri(-5, 5, (B, E)),
+                         ri(-5, 5, (B, E)), ri(0, 2, (B, E)) == 1, ri(0, 4, (B, E)),
+                         ri(0, 1 << 20, (B, E)), ri(-1, 9, (B, E)))
+    for name, stb in zip(("minpaxos", "mencius"), states):
+        got = substeps.pack_outputs(stb, obb, exb)
+        extra[f"pack_outputs_batch_{name}"] = max_abs_err(
+            got, substeps._pack_plain(stb, obb, exb, torch.empty_like(got),
+                                      stb.window_base))
+    # K4 insert on 2^18-way tables 90% full: rows overflow, displace, drop
+    C = 1 << TCP_KV_POW2
+    kv = kvs.kv_init(TCP_KV_POW2, 2, dev)
+    n_fill = int(0.9 * C)
+    fill = torch.unique(ri(0, 1 << 30, (n_fill + n_fill // 8,)))[:n_fill]
+    fill = fill[None].expand(2, -1).contiguous()
+    kv = kvs._kv_insert_plain(kv, torch.zeros_like(fill), fill,
+                              torch.ones(fill.shape + (2,), dtype=torch.int32, device=dev),
+                              torch.zeros_like(fill, dtype=torch.bool),
+                              torch.ones_like(fill, dtype=torch.bool))
+    lo = torch.unique(ri(0, 1 << 30, (TCP_E,)))[None].expand(2, -1).contiguous()
+    args = (torch.zeros_like(lo), lo, ri(0, 1 << 30, lo.shape + (2,)),
+            ri(0, 20, lo.shape) == 0, ri(0, 20, lo.shape) != 0)
+    pre = kvs.KVState(*[t.clone() for t in kv])
+    want = kvs._kv_insert_plain(pre, *args)
+    got = kvs.kv_insert_unique(kv, *args)
+    extra["kv_insert_2^18_at_0.9_load"] = max(max_abs_err(a, b) for a, b in zip(got, want))
+    extra["kv_insert_2^18_at_0.9_load_displaced"] = int(
+        ((pre.slot == 1) & (got.slot == 1) & (pre.key_lo != got.key_lo)).sum().item())
+    del kv, pre, want, got
+    # K5 vote bits with five replicas at the server's default window
+    Sd, Md = 16384, 4096
+    for d in (1, R):
+        src = ri(0, R, (4, Md))
+        wb = ri(0, 1 << 20, (4,))
+        inst = wb[:, None] + ri(-300, Sd + 300, (4, Md))
+        cnt = ri(0, 3000, (4, Md))
+        okv = ri(0, 10, (4, Md)) < 3
+        extra[f"vote_bits_R5_S16384_stride{d}"] = max_abs_err(
+            ackruns.range_vote_bits(okv, src, inst, cnt, wb, Sd, R, stride=d),
+            ackruns.pack_vote_bits(ackruns.range_vote_coverage(
+                okv, src, inst, cnt, wb, Sd, R, stride=d)))
+    # K6 at the server's default window
+    code = torch.multinomial(torch.tensor([0.02, 0.1, 0.5, 0.2, 0.0, 0.18], device=dev),
+                             8 * Sd, replacement=True, generator=g).view(8, Sd)
+    x_status = torch.tensor([0, 3, 4, 4, 4, 5], device=dev, dtype=torch.uint8)[code]
+    x_wb = ri(0, 1 << 20, (8,))
+    x_eu = x_wb + ri(-1, Sd // 2, (8,))
+    x_args = (torch.zeros((8, Sd), dtype=torch.int32, device=dev), ri(0, 8192, (8, Sd)),
+              x_status, ri(0, 4, (8, Sd)).to(torch.uint8), x_status == 5, x_wb,
+              x_eu + ri(-1, 2 * 512, (8,)), x_eu, 512)
+    extra["exec_select_S16384"] = max_abs_err(mencius_exec.exec_select(*x_args),
+                                              mencius_exec._exec_select_plain(*x_args))
+    torch.cuda.synchronize()
+    return row, extra
+
 REPLACES = {
     "route": ("minpaxos_tpu_torch/kernels/csrc/route.cu",
               "minpaxos_tpu/ops/segscatter.py:45"),
@@ -490,6 +755,8 @@ REPLACES = {
                           "minpaxos_tpu/ops/ackruns.py:140"),
     "exec_select": ("minpaxos_tpu_torch/kernels/csrc/mencius_exec.cu",
                     "minpaxos_tpu/models/mencius.py:810"),
+    "pack_outputs": ("minpaxos_tpu_torch/kernels/csrc/substeps.cu",
+                     "minpaxos_tpu/ops/substeps.py:112"),
 }
 
 
@@ -759,6 +1026,270 @@ def mencius_path(dev, seed: int, dispatches: int, profile_dir: str | None = None
     return rec
 
 
+
+def _pctl(x, q):
+    return float(np.percentile(np.asarray(x), q)) if len(x) else None
+
+
+def tcp_path(seed: int, busy: dict) -> dict:
+    """The TCP serving deployment (BASELINE config 1 at TCP_SHAPE): a
+    master and three durable MinPaxos replica servers, each its own
+    process and CUDA context on this card (python -m
+    minpaxos_tpu_torch.cli.{master,server}), and the port's client in
+    this process. Drives TCP_OPS checked PUTs closed loop, stops a
+    follower, drives TCP_EXTRA more, revives the follower from its
+    stable store and waits for it to catch up, reads every written key
+    back through READ frames, stops everything and holds the three
+    stable stores' committed prefixes against each other. Each server's
+    kernel launches (after its boot warm-up: the counts start at 0 in
+    every server process) come from the line it prints on stop.
+    ``busy``: the compare phase's profile of one server dispatch at this
+    shape (device busy ms and launches per dispatch), carried into the
+    line beside the servers' own host wall and event span."""
+    import shutil
+    import signal
+
+    from minpaxos_tpu_torch.runtime.client import Client, gen_workload
+    from minpaxos_tpu_torch.runtime.master import _rpc
+    from minpaxos_tpu_torch.runtime.stable import StableStore
+    from minpaxos_tpu_torch.utils.netutil import CONTROL_OFFSET, free_ports
+
+    t_phase = time.monotonic()
+    deadline = t_phase + TCP_LIMIT_S
+    work = os.path.join(HERE, ".tcp_smoke", str(os.getpid()))
+    logs = os.path.join(HERE, ".tcp_smoke_logs")  # kept after the run
+    for d in (work, logs):
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs: dict[str, tuple] = {}
+    mport = free_ports(1)[0]
+    ports = free_ports(TCP_N, sibling_offset=CONTROL_OFFSET)
+
+    def left() -> float:
+        rest = deadline - time.monotonic()
+        if rest <= 0:
+            raise TimeoutError(f"tcp phase exceeded its {TCP_LIMIT_S:.0f} s limit")
+        return rest
+
+    def spawn(name, args):
+        log = open(os.path.join(logs, name + ".log"), "wb")
+        p = subprocess.Popen([sys.executable, "-u", "-m", *args], cwd=HERE, env=env,
+                             stdout=log, stderr=subprocess.STDOUT)
+        procs[name] = (p, log)
+
+    def log_text(name):
+        with open(os.path.join(logs, name + ".log")) as f:
+            return f.read()
+
+    def ctl(port, req, timeout=2.0):
+        return _rpc(("127.0.0.1", port + CONTROL_OFFSET), req, timeout=timeout)
+
+    def wait_for(pred, what, limit):
+        end = min(deadline, time.monotonic() + limit)
+        while time.monotonic() < end:
+            for name, (p, _) in procs.items():
+                if p.poll() is not None and not name.endswith("stopped"):
+                    raise RuntimeError(f"{name} exited ({p.returncode}) while waiting "
+                                       f"for {what}:\n{log_text(name)[-3000:]}")
+            try:
+                v = pred()
+            except (OSError, ValueError, KeyError):
+                v = None
+            if v:
+                return v
+            time.sleep(0.1)
+        raise TimeoutError(f"tcp: timed out waiting for {what}")
+
+    def server_args(port):
+        return ["minpaxos_tpu_torch.cli.server", "-port", str(port), "-mport", str(mport),
+                "-min", "-durable", "-storedir", work, *TCP_SHAPE]
+
+    def stop(name):
+        p, log = procs.pop(name)
+        if p.poll() is None:
+            p.send_signal(signal.SIGTERM)
+            try:
+                p.wait(timeout=max(5.0, min(60.0, left())))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        log.close()
+        procs[name + " stopped"] = (p, log)
+        for line in log_text(name).splitlines():
+            if line.startswith("{") and '"server-stop"' in line:
+                return json.loads(line)
+        return None
+
+    class TimedClient(Client):
+        """The port's client, stamping each command's first send."""
+
+        def propose(self, cmd_ids, ops, keys, vals):
+            t = time.monotonic()
+            for c in np.asarray(cmd_ids).tolist():
+                self.sent.setdefault(c, t)
+            super().propose(cmd_ids, ops, keys, vals)
+
+    rec: dict = dict(phase="tcp", deployment="BASELINE config 1: master + "
+                     f"{TCP_N} MinPaxos replica servers -min -durable "
+                     + " ".join(TCP_SHAPE), client_batch=TCP_BATCH)
+    stops: dict[str, dict] = {}
+    try:
+        spawn("master", ["minpaxos_tpu_torch.cli.master", "-port", str(mport),
+                         "-N", str(TCP_N), "-ping", "0.5"])
+        for port in ports:
+            spawn(f"server{port}", server_args(port))
+        nodes = wait_for(lambda: (lambda r: r["ok"] and r["nodes"])(
+            _rpc(("127.0.0.1", mport), {"m": "get_replica_list"})),
+            "all replicas to register", 120)
+        rid = {int(p): i for i, (_, p) in enumerate(nodes)}
+        port_of = {i: p for p, i in rid.items()}
+        # every server answers ping; the master's leader leads, prepared
+        # (replica 0 self-elects at boot unless the master, finding it
+        # not yet up, promoted another replica first)
+        wait_for(lambda: all(ctl(p, {"m": "ping"})["ok"] for p in ports),
+                 "every control port", 120)
+
+        def leader_ready():
+            r = _rpc(("127.0.0.1", mport), {"m": "get_leader"})
+            if not r.get("ok"):
+                return None
+            ping = ctl(port_of[int(r["leader"])], {"m": "ping"})
+            ok = ping["leader"] == int(r["leader"]) and ping["prepared"]
+            return int(r["leader"]) + 1 if ok else None
+
+        wait_for(leader_ready, "a prepared leader", 120)
+        # warm-up, as bench_tcp.py does: 300 checked PUTs on keys outside
+        # the measured range, until one run completes — the boot
+        # election (replica 0's own, or the master's promotion when it
+        # pinged before replica 0 was up) settles before the measurement
+        wops, wkeys, wvals = gen_workload(300, seed=1)
+        warm_runs = 0
+        while True:
+            warm_runs += 1
+            wc = Client(("127.0.0.1", mport), check=True)
+            w = wc.run_workload(wops, wkeys + 1_000_000, wvals, timeout_s=min(60.0, left()))
+            wc.close_conn()
+            if w["acked"] == len(wops):
+                break
+        lead_id = wait_for(leader_ready, "a prepared leader", 120) - 1
+        rec.update(boot_s=time.monotonic() - t_phase, warmup_runs=warm_runs, leader=lead_id)
+        ops1, keys1, vals1 = gen_workload(TCP_OPS, seed=42)
+        ops2, keys2, vals2 = gen_workload(TCP_EXTRA, seed=43)
+        ops = np.concatenate([ops1, ops2])
+        keys = np.concatenate([keys1, keys2])
+        vals = np.concatenate([vals1, vals2])
+        cli = TimedClient(("127.0.0.1", mport), check=True)
+        cli.sent = {}
+        t0 = time.perf_counter()
+        st1 = cli.run_partition(np.arange(TCP_OPS), ops, keys, vals, batch=TCP_BATCH,
+                                timeout_s=left())
+        wall = time.perf_counter() - t0
+        lat = [(cli.replies[c]["t_arrive"] - cli.sent[c]) * 1e3
+               for c in range(TCP_OPS) if c in cli.replies and c in cli.sent]
+        rec.update(acked=st1["acked"], duplicates=st1["duplicates"], wall_s=wall,
+                   ops_per_s=st1["acked"] / wall,
+                   p50_latency_ms=_pctl(lat, 50), p99_latency_ms=_pctl(lat, 99))
+        # the fault leg: stop a follower (the highest id that does not
+        # lead), commit more, revive it
+        fid = max(i for i in range(TCP_N) if i != lead_id)
+        follower = f"server{port_of[fid]}"
+        stops[f"replica{fid}_first_life"] = stop(follower)
+        st2 = cli.run_partition(np.arange(TCP_OPS, TCP_OPS + TCP_EXTRA), ops, keys, vals,
+                                batch=TCP_BATCH, timeout_s=left())
+        rec.update(fault_leg_acked=st2["acked"], fault_leg_duplicates=st2["duplicates"])
+        t_rev = time.monotonic()
+        spawn(follower + "_revived", server_args(port_of[fid]))
+        target = ctl(port_of[lead_id], {"m": "ping"})["frontier"]
+        wait_for(lambda: ctl(port_of[fid], {"m": "ping"})["frontier"] >= target,
+                 f"the revived follower to reach frontier {target}", 180)
+        rec.update(leader_frontier_at_revive=target,
+                   revived_catchup_s=time.monotonic() - t_rev)
+        # every written key read back through READ frames
+        last: dict[int, int] = {}
+        for k, v in zip(keys.tolist(), vals.tolist()):
+            last[k] = v
+        want_k = np.fromiter(last.keys(), np.int64, len(last))
+        want_v = np.fromiter(last.values(), np.int64, len(last))
+        base = 1 << 24
+        for lo in range(0, len(want_k), TCP_BATCH):
+            ids = base + np.arange(lo, min(lo + TCP_BATCH, len(want_k)))
+            cli.read(ids, want_k[lo:lo + TCP_BATCH])
+            if not cli.wait(ids, timeout_s=min(60.0, left())):
+                break
+        got = np.asarray([cli.replies.get(int(base + i), {}).get("val", -1)
+                          for i in range(len(want_k))], np.int64)
+        rec.update(readback_keys=len(want_k),
+                   readback_missing=int(sum(int(base + i) not in cli.replies
+                                            for i in range(len(want_k)))),
+                   readback_wrong=int(((got != want_v) & (got != -1)).sum()))
+        cli.close_conn()
+        for i in range(TCP_N):
+            name = f"server{port_of[i]}" + ("_revived" if i == fid else "")
+            stops[f"replica{i}"] = stop(name)
+        stop("master")
+        # the three durable logs agree on their committed prefix
+        stores = [StableStore(os.path.join(work, f"stable-store-replica{i}"), sync=False)
+                  for i in range(TCP_N)]
+        try:
+            prefixes = [s_.committed_prefix() for s_ in stores]
+            upto = min(prefixes)
+            recs = [s_.read_range(0, upto) for s_ in stores]
+            agree = all(len(r) == upto + 1 for r in recs) and all(
+                np.array_equal(r[f], recs[0][f]) for r in recs[1:]
+                for f in ("inst", "op", "key", "val", "cmd_id", "client_id"))
+        finally:
+            for s_ in stores:
+                s_.close()
+        rec.update(store_committed_prefixes=prefixes, stores_agree=agree)
+    finally:
+        for name, (p, log) in list(procs.items()):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        shutil.rmtree(os.path.join(HERE, ".tcp_smoke"), ignore_errors=True)
+    lead = stops.get(f"replica{rec.get('leader')}") or {}
+    rec.update(
+        dispatches=lead.get("dispatches"),
+        wall_ms_per_dispatch=lead.get("wall_ms_per_dispatch"),
+        device_span_ms_per_dispatch=lead.get("device_span_ms_per_dispatch"),
+        device_busy_ms_per_dispatch=busy.get("dispatch_device_ms"),
+        kernel_launches_per_dispatch=busy.get("dispatch_kernel_launches"),
+        servers={k: {f: v.get(f) for f in (
+            "dispatches", "fused_substeps", "executed", "wall_ms_per_dispatch",
+            "device_span_ms_per_dispatch", "max_memory_allocated", "launches", "fatal")}
+            if v else None for k, v in stops.items()},
+        phase_s=time.monotonic() - t_phase)
+    launches: dict[str, int] = {}
+    for v in stops.values():
+        for k, n in ((v or {}).get("launches") or {}).items():
+            launches[k] = launches.get(k, 0) + n
+    rec["launches"] = launches
+    emit(rec)
+    bad = []
+    if rec["acked"] != TCP_OPS or rec["duplicates"]:
+        bad.append(f"{rec['acked']}/{TCP_OPS} acked, {rec['duplicates']} duplicates")
+    if rec["fault_leg_acked"] != TCP_EXTRA or rec["fault_leg_duplicates"]:
+        bad.append(f"fault leg {rec['fault_leg_acked']}/{TCP_EXTRA} acked, "
+                   f"{rec['fault_leg_duplicates']} duplicates")
+    if rec["readback_missing"] or rec["readback_wrong"]:
+        bad.append(f"read-back: {rec['readback_missing']} missing, "
+                   f"{rec['readback_wrong']} wrong of {rec['readback_keys']}")
+    if not rec["stores_agree"] or min(rec["store_committed_prefixes"]) < TCP_OPS + TCP_EXTRA - 1:
+        bad.append(f"stable stores: prefixes {rec['store_committed_prefixes']}, "
+                   f"agree {rec['stores_agree']}")
+    for k, v in stops.items():
+        if not v or v.get("fatal") or not v.get("joined", False):
+            bad.append(f"{k}: no clean stop ({v})")
+            continue
+        missing = [n for n in KERNELS["tcp"] if not v["launches"].get(n)]
+        if missing:
+            bad.append(f"{k}: kernels never launched while serving: {missing}")
+    if bad:
+        fail("tcp", "; ".join(bad))
+    return rec
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -786,21 +1317,29 @@ def main() -> None:
               torch=torch.__version__, cuda=torch.version.cuda,
               kernel_build_s=round(build_s, 2), ptxas=ptxas))
 
-    res, apply_err = {}, {}
+    res, apply_err, extra = {}, {}, {}
     for path, sh in PATHS.items():
         res[path], apply_err[path] = compare_kernels(dev, args.seed, sh)
+        if path == "tcp":
+            res[path]["pack_outputs"], extra = compare_tcp(dev, args.seed)
+            probe = extra.pop("_dispatch_probe")
         emit(dict(phase="compare", path=path, card=smi,
                   kv_apply_max_abs_err=apply_err[path],
+                  **(extra if path == "tcp" else {}),
                   kernels={k: dict(v, equal=v["err"] == 0)
                            for k, v in res[path].items()}))
         torch.cuda.empty_cache()
     bad = [f"{k}@{p}" for p, r in res.items() for k, v in r.items() if v["err"] != 0]
+    bad += [k for k, v in extra.items() if k.startswith(("pack_outputs", "kv_insert",
+            "vote_bits", "exec_select")) and "displaced" not in k and v != 0]
     if bad or any(apply_err.values()):
         fail("compare", f"kernels disagree with their plain versions: {bad}, "
                         f"kv_apply err {apply_err}")
     if not res["minpaxos"]["kv_insert"]["full_load"]["displaced"]:
         fail("compare", "the full-load kv_insert compare displaced no row, so "
                         "it did not hold the displacement pass to its twin")
+    if not extra["kv_insert_2^18_at_0.9_load_displaced"]:
+        fail("compare", "the 2^18-way kv_insert compare at 0.9 load displaced no row")
     gold = load_fixture(os.path.join(HERE, "tests", "fixtures", "kernel_golden.json"))
     golden = {}
     for proto in PROTOCOLS:
@@ -814,9 +1353,17 @@ def main() -> None:
     recs = {"minpaxos": main_path(dev, args.seed, DISPATCHES, args.profile)}
     torch.cuda.empty_cache()
     recs["mencius"] = mencius_path(dev, args.seed, DISPATCHES, args.profile)
+    torch.cuda.empty_cache()
+    # the profiler runs after the resident paths, so it cannot weigh on
+    # their timing
+    busy = dispatch_profile(*probe)
+    emit(dict(phase="dispatch_profile", **busy))
+    del probe
+    recs["tcp"] = tcp_path(args.seed, busy)
 
     # one row per (kernel, path): the MinPaxos path's rows under the
-    # kernel's name, the Mencius path's as name@mencius
+    # kernel's name, the other paths' as name@path (a kernel of one path
+    # only keeps its bare name); TCP launches are summed over the servers
     table = []
     for path, names in KERNELS.items():
         for name in names:
@@ -825,7 +1372,7 @@ def main() -> None:
             t_bytes = 1e3 * v["bytes"] / HBM_BYTES_PER_S
             t_ops = 1e3 * v["ops"] / ALU_OPS_PER_S
             table.append(dict(
-                name=name if path == "minpaxos" or name == "exec_select"
+                name=name if path == "minpaxos" or name in ("exec_select", "pack_outputs")
                 else f"{name}@{path}",
                 route="cuda", source=src, replaces=repl, path=path,
                 launches=recs[path]["launches"].get(name, 0), max_abs_err=v["err"],

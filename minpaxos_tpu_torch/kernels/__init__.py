@@ -29,7 +29,8 @@ import torch
 HERE = Path(__file__).resolve().parent
 CSRC = HERE / "csrc"
 BUILD = HERE / "build"
-SOURCES = ("route", "winner", "scan", "kvstore", "ackruns", "mencius_exec")
+SOURCES = ("route", "winner", "scan", "kvstore", "ackruns", "mencius_exec",
+           "substeps")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

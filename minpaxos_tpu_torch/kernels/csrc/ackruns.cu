@@ -14,13 +14,16 @@
 //   flags gives each row its run id; run lengths are shared-memory
 //   atomic counts per run id, read back at every row (the JAX form
 //   publishes them at every row, not only at run starts).
-// * coverage: one block per batch row. Each (sender, phase) plane of
-//   the difference array lives in shared memory (R x (S+1) counters at
-//   stride 1, R*d x (S/d+3) rank counters at stride d); valid rows add
-//   +1/-1 with shared-memory atomics, each plane is prefix-summed in
-//   place (per-thread chunks, then a per-plane carry), and each thread
-//   packs the vote mask of its slots. The [B, S, R] bool coverage of
-//   the JAX form never reaches device memory.
+// * coverage: one block per (batch row, tile of the window). Each
+//   (sender, phase) plane of the difference array lives in shared
+//   memory, over the tile's ranks only (slots at stride 1, slot / d at
+//   stride d); the window is cut into as many tiles as keep a block's
+//   planes within 112 KB (one tile at S = 4096 and R = 5; three at the
+//   server's S = 16384 with R = 5). Valid rows clip their rank range to
+//   the tile and add +1/-1 with shared-memory atomics, each plane is
+//   prefix-summed in place (per-thread chunks, then a per-plane carry),
+//   and each thread packs the vote mask of its slots. The [B, S, R]
+//   bool coverage of the JAX form never reaches device memory.
 // * scatter_vote_bits: a memset, then one thread per row and atomicOr
 //   of 1 << src into its slot: order-free, so duplicates and several
 //   senders per slot give the same mask.
@@ -96,14 +99,16 @@ __global__ void __launch_bounds__(ACK_NT)
 mp_vote_bits_k(const unsigned char* __restrict__ valid,
                const int* __restrict__ src, const int* __restrict__ inst,
                const int* __restrict__ count, const int* __restrict__ wbase,
-               int* __restrict__ out, int m, int S, int R, int d) {
-  extern __shared__ int ack_vd[];  // [P][L] difference planes
+               int* __restrict__ out, int m, int S, int R, int d, int T,
+               int tiles) {
+  extern __shared__ int ack_vd[];  // [P][L] difference planes of one tile
   __shared__ int chunk_tot[ACK_NT];
   const int nt = blockDim.x, tid = threadIdx.x;
   const int P = d == 1 ? R : R * d;
-  const int nrk = S / d + 2;
-  const int L = d == 1 ? S + 1 : nrk + 1;
-  const long long row = blockIdx.x;
+  const int L = T + 1;
+  const long long row = blockIdx.x / tiles;
+  const int k0 = (int)(blockIdx.x % tiles) * T;  // first rank of the tile
+  const int k1 = k0 + T;
   for (int i = tid; i < P * L; i += nt) ack_vd[i] = 0;
   __syncthreads();
   const int wb = wbase[row];
@@ -113,28 +118,31 @@ mp_vote_bits_k(const unsigned char* __restrict__ valid,
     const int cnt = count[k] < 1 ? 1 : count[k];
     const int sr = src[k] < 0 ? 0 : (src[k] > R - 1 ? R - 1 : src[k]);
     const int in = inst[k];
+    int pl, lo, hi;  // plane, rank range [lo, hi) before the tile clip
     if (d == 1) {
-      int lo = in - wb, hi = in + cnt - wb;
+      lo = in - wb;
+      hi = in + cnt - wb;
       lo = lo < 0 ? 0 : (lo > S ? S : lo);
       hi = hi < 0 ? 0 : (hi > S ? S : hi);
-      if (hi > lo) {
-        atomicAdd(&ack_vd[sr * L + lo], 1);
-        atomicAdd(&ack_vd[sr * L + hi], -1);
-      }
+      pl = sr;
     } else {
       const int rel = in - wb;
       const int j0 = rel < 0 ? (-rel + d - 1) / d : 0;  // ceil(-rel / d)
       const int lo_rel = rel + j0 * d;                  // >= 0
       const int phase = lo_rel % d;
-      const int lo_rank = lo_rel / d;
+      lo = lo_rel / d;
       const int lim = mp_floordiv(S - 1 - phase, d);
-      int rank_hi = lo_rank + (cnt - 1 - j0);
+      int rank_hi = lo + (cnt - 1 - j0);
       if (lim < rank_hi) rank_hi = lim;
-      if (cnt > j0 && lo_rel < S && rank_hi >= lo_rank) {
-        const int pl = sr * d + phase;
-        atomicAdd(&ack_vd[pl * L + lo_rank], 1);
-        atomicAdd(&ack_vd[pl * L + rank_hi + 1], -1);
-      }
+      if (!(cnt > j0 && lo_rel < S && rank_hi >= lo)) continue;
+      hi = rank_hi + 1;
+      pl = sr * d + phase;
+    }
+    if (lo < k0) lo = k0;
+    if (hi > k1) hi = k1;
+    if (hi > lo) {
+      atomicAdd(&ack_vd[pl * L + lo - k0], 1);
+      atomicAdd(&ack_vd[pl * L + hi - k0], -1);
     }
   }
   __syncthreads();
@@ -167,16 +175,23 @@ mp_vote_bits_k(const unsigned char* __restrict__ valid,
     }
   }
   __syncthreads();
-  for (int s = tid; s < S; s += nt) {
+  // the tile's slots: ranks [k0, k1) of every phase
+  const int s0 = k0 * d;
+  const int s1 = (long long)k1 * d < S ? k1 * d : S;
+  for (int s = s0 + tid; s < s1; s += nt) {
     int mask = 0;
     for (int r = 0; r < R; ++r) {
-      const int v = d == 1 ? ack_vd[r * L + s]
-                           : ack_vd[(r * d + s % d) * L + s / d];
+      const int v = d == 1 ? ack_vd[r * L + s - k0]
+                           : ack_vd[(r * d + s % d) * L + s / d - k0];
       if (v > 0) mask |= 1 << r;
     }
     out[row * S + s] = mask;
   }
 }
+
+// shared memory a vote-bits block may take: two blocks of 1,024 threads
+// per SM (an SM holds 228 KB)
+constexpr size_t VB_SMEM_BUDGET = 112 * 1024;
 
 MP_EXPORT int mp_range_vote_bits(const unsigned char* valid, const int* src,
                                  const int* inst, const int* count,
@@ -185,15 +200,20 @@ MP_EXPORT int mp_range_vote_bits(const unsigned char* valid, const int* src,
   if (R < 1 || R > 16 || d < 1 || S < 1) return MP_ERR_SHAPE;
   if (rows <= 0) return (int)cudaGetLastError();
   const int P = d == 1 ? R : R * d;
-  const int L = d == 1 ? S + 1 : S / d + 3;
   if (P > ACK_NT) return MP_ERR_SHAPE;
-  const size_t smem = (size_t)P * L * 4;
-  if (smem > 220 * 1024) return MP_ERR_SHAPE;
+  // ranks per plane (slots at stride 1), tiled so one tile's planes fit
+  const int NR = d == 1 ? S : S / d + 2;
+  int T = (int)(VB_SMEM_BUDGET / ((size_t)P * 4)) - 1;
+  if (T < 1) return MP_ERR_SHAPE;
+  if (T > NR) T = NR;
+  const int tiles = (NR + T - 1) / T;
+  if (rows * tiles > 0x7fffffffLL) return MP_ERR_SHAPE;
+  const size_t smem = (size_t)P * (T + 1) * 4;
   static size_t optin = 0;
   const int oe = mp_smem_optin((const void*)mp_vote_bits_k, smem, &optin);
   if (oe) return oe;
-  mp_vote_bits_k<<<(int)rows, ACK_NT, smem, s>>>(valid, src, inst, count, wbase,
-                                                 out, m, S, R, d);
+  mp_vote_bits_k<<<(int)(rows * tiles), ACK_NT, smem, s>>>(
+      valid, src, inst, count, wbase, out, m, S, R, d, T, tiles);
   return (int)cudaGetLastError();
 }
 

@@ -13,11 +13,11 @@
 //   (the first live match wins, as argmax does in the JAX engine).
 // * insert: one block per batch row, so every claim contest of that
 //   row's table runs inside the block. Each of the WAYS claim rounds
-//   is a scatter-min of the row index into a shared-memory claims
-//   array (one int per bucket), then __syncthreads(); the lowest
+//   is a scatter-min of the row index into a claims array (one int
+//   per bucket), then __syncthreads(); the lowest
 //   contending row wins the bucket's r-th free way. Pass A targets the
 //   emptier bucket; pass B retries the other bucket with the ways pass
-//   A claimed masked out (a bit per position in shared memory). Pass C
+//   A claimed masked out (a bit per position). Pass C
 //   places the rows that fit in neither bucket by displacement, when
 //   there are any (rare): thread 0 takes the first DISPLACE_ROUNDS
 //   failing rows in row order; each moves one resident of its buckets
@@ -26,6 +26,16 @@
 //   runs the same rounds in the same order. All table reads happen
 //   before the first write; the resident moves land before the rows,
 //   and no two writes share a position.
+// * insert scratch: the claims array (C/4 ints) and the taken/pinned
+//   bit arrays (2 x C/32 words) live in the block's shared memory
+//   while they fit in 227 KB (C <= 2^17). Above that (the serving
+//   deployment runs C = 2^18) they live in a global-memory scratch of
+//   [B, C/4 + C/16] ints that the wrapper allocates once per shape;
+//   the kernel clears the bit arrays itself and writes every claim
+//   word before reading it, so the scratch needs no reset between
+//   launches. The claim order, and so the placement, is the same on
+//   both paths; __syncthreads() orders the global accesses of the
+//   block as it does the shared ones.
 #include "common.cuh"
 
 #define WAYS 4
@@ -197,22 +207,29 @@ __device__ int displace(const int* key_hi, const int* key_lo,
   return nm;
 }
 
+// G: the claim arrays live in the global scratch (else shared memory);
+// a template argument, so the shared path keeps shared-memory accesses
+template <bool G>
 __global__ void __launch_bounds__(1024)
 mp_kv_insert_k(int* __restrict__ key_hi, int* __restrict__ key_lo,
                int* __restrict__ val, int* __restrict__ slot,
                int* __restrict__ dropped, const int* __restrict__ khi,
                const int* __restrict__ klo, const int* __restrict__ v,
                const unsigned char* __restrict__ del,
-               const unsigned char* __restrict__ valid, int E, int C, int L) {
+               const unsigned char* __restrict__ valid, int E, int C, int L,
+               int* gscratch, long long gstride) {
   extern __shared__ int smem[];
   const int nb = C / WAYS;
   const int ncw = (C + 31) / 32, nfw = (E + 31) / 32;
-  int* claims = smem;                                       // [nb]
-  unsigned* taken = reinterpret_cast<unsigned*>(smem + nb);  // [ncw]
-  unsigned* pinned = taken + ncw;                           // [ncw]
-  unsigned* failbits = pinned + ncw;                        // [nfw]
-  int* moves = reinterpret_cast<int*>(failbits + nfw);      // [3 * DR + 1]
   const long long b = blockIdx.x;
+  // claims [nb] and taken/pinned [ncw] each: shared, or this row's
+  // slice of the global scratch; failbits [nfw] and moves [3 * DR + 1]
+  // always shared
+  int* claims = G ? gscratch + b * gstride : smem;
+  unsigned* taken = reinterpret_cast<unsigned*>(claims + nb);
+  unsigned* pinned = taken + ncw;
+  unsigned* failbits = G ? reinterpret_cast<unsigned*>(smem) : pinned + ncw;
+  int* moves = reinterpret_cast<int*>(failbits + nfw);
   const long long tb = b * (long long)C;
   const long long rb = b * (long long)E;
   for (int j = threadIdx.x; j < ncw; j += blockDim.x) taken[j] = 0u;
@@ -333,25 +350,48 @@ mp_kv_insert_k(int* __restrict__ key_hi, int* __restrict__ key_lo,
   if (lost) atomicAdd(dropped + b, lost);
 }
 
+static size_t kv_insert_tail_bytes(int E) {
+  return (size_t)((E + 31) / 32) * 4 + (size_t)(3 * DISPLACE_ROUNDS + 1) * 4;
+}
+
+static size_t kv_insert_table_bytes(int C) {
+  return (size_t)(C / WAYS) * 4 + (size_t)((C + 31) / 32) * 8;
+}
+
+// Ints of global scratch per batch row that mp_kv_insert needs for a
+// [*, C] table and E rows: 0 when everything fits in shared memory.
+MP_EXPORT long long mp_kv_insert_scratch_ints(int E, int C) {
+  if (C < WAYS || (C & (C - 1)) || E <= 0) return 0;
+  if (kv_insert_table_bytes(C) + kv_insert_tail_bytes(E) <= 227 * 1024) return 0;
+  return (long long)(kv_insert_table_bytes(C) / 4);
+}
+
 MP_EXPORT int mp_kv_insert(int* key_hi, int* key_lo, int* val, int* slot,
                            int* dropped, const int* khi, const int* klo,
                            const int* v, const unsigned char* del,
                            const unsigned char* valid, long long rows, int E,
-                           int C, int L, cudaStream_t s) {
+                           int C, int L, int* scratch, cudaStream_t s) {
   if (C < WAYS || (C & (C - 1))) return MP_ERR_SHAPE;
   if (rows <= 0 || E <= 0) return (int)cudaGetLastError();
   int threads = ((E + 31) / 32) * 32;
   if (threads > 1024) threads = 1024;
   if ((E + threads - 1) / threads > MAX_RPT) return MP_ERR_SHAPE;
-  const int nb = C / WAYS;
-  const size_t smem = (size_t)nb * 4 + (size_t)((C + 31) / 32) * 8 +
-                      (size_t)((E + 31) / 32) * 4 +
-                      (size_t)(3 * DISPLACE_ROUNDS + 1) * 4;
+  const long long gstride = mp_kv_insert_scratch_ints(E, C);
+  if (gstride && !scratch) return MP_ERR_SHAPE;
+  const size_t smem = gstride ? kv_insert_tail_bytes(E)
+                              : kv_insert_table_bytes(C) + kv_insert_tail_bytes(E);
   if (smem > 227 * 1024) return MP_ERR_SHAPE;
-  static size_t optin = 0;
-  const int oe = mp_smem_optin((const void*)mp_kv_insert_k, smem, &optin);
-  if (oe) return oe;
-  mp_kv_insert_k<<<(int)rows, threads, smem, s>>>(
-      key_hi, key_lo, val, slot, dropped, khi, klo, v, del, valid, E, C, L);
+  if (gstride) {
+    mp_kv_insert_k<true><<<(int)rows, threads, smem, s>>>(
+        key_hi, key_lo, val, slot, dropped, khi, klo, v, del, valid, E, C, L,
+        scratch, gstride);
+  } else {
+    static size_t optin = 0;
+    const int oe = mp_smem_optin((const void*)mp_kv_insert_k<false>, smem, &optin);
+    if (oe) return oe;
+    mp_kv_insert_k<false><<<(int)rows, threads, smem, s>>>(
+        key_hi, key_lo, val, slot, dropped, khi, klo, v, del, valid, E, C, L,
+        nullptr, 0);
+  }
   return (int)cudaGetLastError();
 }

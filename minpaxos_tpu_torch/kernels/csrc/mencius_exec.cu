@@ -25,7 +25,7 @@
 #include "common.cuh"
 
 constexpr int EX_NT = 1024;
-constexpr int EX_MAX_S = 8192;
+constexpr int EX_MAX_S = 16384;  // 16-bit slot ids; 180 KB of shared memory
 // wire/messages.py statuses and ops
 constexpr int ST_NONE = 0, ST_ACCEPTED = 3, ST_COMMITTED = 4, ST_EXECUTED = 5;
 constexpr int OP_PUT = 1, OP_DELETE = 3;
@@ -166,6 +166,7 @@ MP_EXPORT int mp_exec_select(const int* key_hi, const int* key_lo,
   int n2 = 1;
   while (n2 < S) n2 <<= 1;
   const size_t smem = (size_t)n2 * 8 + (size_t)n2 * 2 + (size_t)S;
+  if (smem > 227 * 1024) return MP_ERR_SHAPE;
   static size_t optin = 0;
   const int oe = mp_smem_optin((const void*)mp_exec_select_k, smem, &optin);
   if (oe) return oe;

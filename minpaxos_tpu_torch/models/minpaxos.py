@@ -774,7 +774,7 @@ def to_numpy_state(state, lead_shape=None):
             x = x.astype(np.uint16)
         if lead_shape is not None:
             x = x.reshape(tuple(lead_shape) + x.shape[1:])
-        return np.ascontiguousarray(x)
+        return np.array(x, order="C")  # keeps 0-d leaves 0-d
 
     cls = type(state)
     kv = KVState(*[conv(getattr(state.kv, f), f) for f in _KV_FIELDS])

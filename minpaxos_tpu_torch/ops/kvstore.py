@@ -28,6 +28,7 @@ version returns new ones.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -282,6 +283,22 @@ def _displace(kv: KVState, pos, fail, claimed, matched):
     return dest, src, dst
 
 
+# per (device, B, E, C): the insert's global-memory claim scratch, for
+# tables whose claim arrays exceed a block's shared memory (C > 2^17)
+_SCRATCH: dict[tuple, torch.Tensor | None] = {}
+
+
+def _insert_scratch(b: int, e: int, c: int, device) -> torch.Tensor | None:
+    key = (str(device), b, e, c)
+    if key not in _SCRATCH:
+        f_ = K.fn("kvstore", "mp_kv_insert_scratch_ints", [K.I, K.I])
+        f_.restype = ctypes.c_longlong
+        n = int(f_(e, c))
+        _SCRATCH[key] = (torch.empty((b, n), dtype=I32, device=device)
+                         if n else None)
+    return _SCRATCH[key]
+
+
 @K.kernel("kv_insert")
 def _kv_insert_kernel(kv: KVState, k_hi, k_lo, v, delete, valid) -> KVState:
     t_hi = K.cuda_arg(kv.key_hi, I32, "kv key_hi")
@@ -301,10 +318,12 @@ def _kv_insert_kernel(kv: KVState, k_hi, k_lo, v, delete, valid) -> KVState:
     b, e = q_hi.shape
     c, lanes = t_v.shape[1:]
     f_ = K.fn("kvstore", "mp_kv_insert",
-              [K.P] * 10 + [K.L, K.I, K.I, K.I, K.P])
+              [K.P] * 10 + [K.L, K.I, K.I, K.I, K.P, K.P])
+    scratch = _insert_scratch(b, e, c, t_hi.device)
     rc = f_(K.ptr(t_hi), K.ptr(t_lo), K.ptr(t_v), K.ptr(t_s), K.ptr(t_d),
             K.ptr(q_hi), K.ptr(q_lo), K.ptr(q_v), K.ptr(q_del), K.ptr(q_ok),
-            b, e, c, lanes, K.stream(q_hi))
+            b, e, c, lanes, None if scratch is None else K.ptr(scratch),
+            K.stream(q_hi))
     K.check("kvstore", rc, "kv_insert")
     _kv_insert_kernel.launches += 1
     return kv

@@ -141,7 +141,7 @@ def test_ackruns_kernels(dev, stride):
                        ackruns._scatter_vote_bits_plain(S, idx, src, ok, R))
 
 
-@pytest.mark.parametrize("s,e", [(64, 12), (100, 50), (4096, 320)])
+@pytest.mark.parametrize("s,e", [(64, 12), (100, 50), (4096, 320), (16384, 512)])
 def test_exec_select_kernel(dev, s, e):
     from minpaxos_tpu_torch.ops import mencius_exec
 
@@ -161,6 +161,152 @@ def test_exec_select_kernel(dev, s, e):
     got = mencius_exec.exec_select(*args)
     want = mencius_exec._exec_select_plain(*args)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("stride", [1, 5])
+def test_vote_bits_at_the_server_window(dev, stride):
+    """K5 vote bits at the server's default window (S = 16384) with five
+    replicas: the window is tiled over several blocks per replica."""
+    from minpaxos_tpu_torch.ops import ackruns
+
+    g = _gen(dev, 20 + stride)
+    B, M, S, R = 4, 4096, 16384, 5
+    src = torch.randint(0, R, (B, M), device=dev, dtype=torch.int32, generator=g)
+    wb = torch.randint(0, 1 << 20, (B,), device=dev, dtype=torch.int32, generator=g)
+    inst = wb[:, None] + torch.randint(-300, S + 300, (B, M), device=dev,
+                                       dtype=torch.int32, generator=g)
+    count = torch.randint(0, 3000, (B, M), device=dev, dtype=torch.int32, generator=g)
+    ok = torch.rand((B, M), device=dev, generator=g) < 0.3
+    got = ackruns.range_vote_bits(ok, src, inst, count, wb, S, R, stride=stride)
+    want = ackruns.pack_vote_bits(ackruns.range_vote_coverage(
+        ok, src, inst, count, wb, S, R, stride=stride))
+    assert torch.equal(got, want)
+    assert int((got == (1 << R) - 1).sum()) > 0  # some slots covered by all
+
+
+def _colliding_keys(kvs, c, n_buckets, n, dev, seed):
+    """``n`` distinct keys whose first candidate bucket is among the
+    first ``n_buckets`` of a 2^k-way table: a contended insert."""
+    g = _gen(dev, seed)
+    found = []
+    while sum(len(f) for f in found) < n:
+        lo = torch.randint(0, 1 << 30, (1 << 22,), device=dev, dtype=torch.int32, generator=g)
+        b1, _ = kvs._buckets(c, torch.zeros_like(lo), lo)
+        found.append(lo[b1 < n_buckets])
+    return torch.unique(torch.cat(found))[:n]
+
+
+@pytest.mark.parametrize("e", [128, 1024])
+def test_kv_insert_above_shared_memory(dev, e):
+    """K4 insert at C = 2^18 (the serving deployment's -kvpow2 18), where
+    the claim arrays live in global memory, against the plain twin:
+    random keys into an empty table; keys crowded into 64 buckets, so
+    the claim rounds contend and rows overflow to their other bucket;
+    then random keys into a table 90% full, where rows displace
+    residents and drop."""
+    from minpaxos_tpu_torch.ops import kvstore as kvs
+
+    C = 1 << 18
+    B = 2
+    assert kvs._insert_scratch(B, e, C, dev) is not None  # the global path
+    g = _gen(dev, e)
+    kv = kvs.kv_init(18, B, dev)
+    crowd = _colliding_keys(kvs, C, 64, 2 * e, dev, 7)
+
+    def rand_keys(n):
+        return torch.randint(0, 1 << 30, (n,), device=dev, dtype=torch.int32, generator=g)
+
+    moved = 0
+    for it in range(5):
+        if it == 3:  # fill to 90% through the plain twin
+            n = int(0.9 * C) - int((kv.slot[0] == 1).sum())
+            fill = torch.unique(rand_keys(n + n // 8))[:n][None].expand(B, -1).contiguous()
+            kv = kvs._kv_insert_plain(kv, torch.zeros_like(fill), fill, torch.ones(
+                fill.shape + (2,), dtype=torch.int32, device=dev), torch.zeros_like(
+                fill, dtype=torch.bool), torch.ones_like(fill, dtype=torch.bool))
+        lo = crowd[(it - 1) * e:it * e] if it in (1, 2) else rand_keys(e)
+        lo = torch.unique(lo)[None].expand(B, -1).contiguous()
+        hi = torch.zeros_like(lo)
+        v = torch.randint(0, 1 << 30, lo.shape + (2,), device=dev, dtype=torch.int32,
+                          generator=g)
+        dele = torch.rand(lo.shape, device=dev, generator=g) < 0.05
+        ok = torch.rand(lo.shape, device=dev, generator=g) < 0.95
+        pre = kvs.KVState(*[t.clone() for t in kv])
+        want = kvs._kv_insert_plain(pre, hi, lo, v, dele, ok)
+        kv = kvs.kv_insert_unique(kv, hi, lo, v, dele, ok)
+        for a, b in zip(kv, want):
+            assert torch.equal(a, b)
+        moved += int(((pre.slot == 1) & (kv.slot == 1) & (pre.key_lo != kv.key_lo)).sum())
+    assert moved > 0 and int(kv.dropped.sum()) > 0
+
+
+def _pack_scenario(dev, protocol):
+    """States, outboxes and exec results of a three-replica exchange on
+    the card (proposals to replica 0, or to every Mencius owner)."""
+    from minpaxos_tpu_torch.models import mencius as tme
+    from minpaxos_tpu_torch.models import minpaxos as tmp
+
+    R, M = 3, 32
+    cfg = tmp.MinPaxosConfig(n_replicas=R, window=128, inbox=M, exec_batch=16,
+                             kv_pow2=8, catchup_rows=8, recovery_rows=8,
+                             gossip_ticks=1)
+    if protocol == "mencius":
+        st = tme.init_mencius(cfg, list(range(R)), device=dev)
+        step = tme.mencius_step_impl
+    else:
+        st = tmp.init_replica(cfg, list(range(R)), device=dev)._replace(
+            default_ballot=torch.full((R,), 16, dtype=torch.int32, device=dev),
+            max_recv_ballot=torch.full((R,), 16, dtype=torch.int32, device=dev),
+            leader_id=torch.zeros(R, dtype=torch.int32, device=dev),
+            prepared=torch.arange(R, device=dev) == 0,
+            prepare_oks=torch.ones((R, R), dtype=torch.bool, device=dev))
+        step = tmp.replica_step_impl
+    g = _gen(dev, 5)
+    out = []
+    st, ob, ex = step(cfg, st, tmp.MsgBatch.empty(R, M, dev))
+    for it in range(8):
+        cols = torch.zeros((12, R, M), dtype=torch.int32, device=dev)
+        kind, dst = ob.msgs.kind, ob.dst
+        for q in range(R):
+            rows = [torch.stack(list(ob.msgs))[:, s, (kind[s] != 0) & ((dst[s] == q) | (dst[s] == -1))]
+                    for s in range(R) if s != q]
+            if (protocol == "mencius" or q == 0) and it < 5:
+                n = 6
+                p = torch.zeros((12, n), dtype=torch.int32, device=dev)
+                p[0], p[1], p[5] = 1, -1, 1
+                p[7] = torch.randint(0, 24, (n,), device=dev, dtype=torch.int32, generator=g)
+                p[9] = torch.randint(1, 1 << 20, (n,), device=dev, dtype=torch.int32,
+                                     generator=g)
+                p[10] = 1000 * (q + 1) + n * it + torch.arange(n, device=dev)
+                p[11] = 7
+                rows.append(p)
+            r = torch.cat(rows, 1)[:, :M]
+            cols[:, q, :r.shape[1]] = r
+        st, ob, ex = step(cfg, st, tmp.MsgBatch(*cols.unbind(0)))
+        out.append((st, ob, ex))
+    return out
+
+
+@pytest.mark.parametrize("protocol", ["minpaxos", "mencius"])
+def test_pack_outputs_kernel(dev, protocol):
+    """K7 against its plain twin on states of a live exchange, batched
+    (B = 3), on a narrowed (strided) view with a reported window base,
+    and for one replica row at a time."""
+    from minpaxos_tpu_torch.ops import substeps
+
+    executed = 0
+    for st, ob, ex in _pack_scenario(dev, protocol):
+        got = substeps.pack_outputs(st, ob, ex)
+        want = substeps._pack_plain(st, ob, ex, torch.empty_like(got), st.window_base)
+        assert torch.equal(got, want)
+        executed += int(ex.count.sum())
+        view, _ = substeps.narrow_view(st, 8, 64)
+        rb = st.window_base + 3
+        got = substeps.pack_outputs(view, ob, ex, report_base=rb)
+        want = substeps._pack_plain(view, ob, ex, torch.empty_like(got), rb)
+        assert torch.equal(got, want)
+    assert executed > 0
+    assert substeps._pack_kernel.launches > 0
 
 
 def test_golden_digests_on_the_card(dev):

@@ -132,3 +132,67 @@ def test_kernel_wrappers_never_fall_back_for_non_cpu_tensors():
         ackruns._scatter_vote_bits_kernel(8, i, i, b, 5)
     with pytest.raises(RuntimeError, match="CUDA tensor"):
         mencius_exec._exec_select_kernel(i, i, u, u, b, v, v, v, 4)
+
+
+def test_serving_path_modules_are_walked():
+    """Every module of the serving path, the CLI entry points included,
+    is among those imported with JAX blocked above."""
+    walked = set(_modules())
+    for name in ("wire.codec", "wire.messages", "utils.netutil", "utils.clock",
+                 "utils.dlog", "obs.metrics", "runtime.stable", "runtime.batches",
+                 "runtime.transport", "runtime.replica", "runtime.master",
+                 "runtime.client", "ops.substeps", "cli.master", "cli.server",
+                 "cli.client"):
+        assert f"minpaxos_tpu_torch.{name}" in walked, name
+
+
+def test_chip_smoke_launches_no_module_of_the_jax_package():
+    """chip_smoke.py starts the port's processes only: it names no
+    dotted module of the JAX package (``python -m minpaxos_tpu.cli...``);
+    the JAX package's files appear only as the text of ``replaces``."""
+    src = open(os.path.join(ROOT, "chip_smoke.py")).read()
+    assert "minpaxos_tpu." not in src.replace("minpaxos_tpu_torch", ""), \
+        "chip_smoke.py names a module of the JAX package"
+
+
+def test_server_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid here")
+    from minpaxos_tpu_torch.cli.server import build_parser
+    from minpaxos_tpu_torch.runtime.replica import ReplicaServer, RuntimeFlags
+
+    assert build_parser().parse_args([]).device == "cuda"
+    assert RuntimeFlags().device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        ReplicaServer(0, [("127.0.0.1", 1)])
+    for flag in ("-platform", "-norecorder", "-notrace", "-nowatch"):
+        with pytest.raises(SystemExit):
+            build_parser().parse_args([flag] if flag != "-platform" else [flag, "cpu"])
+
+
+def test_pack_outputs_never_falls_back_for_non_cpu_tensors():
+    """K7's wrapper takes the plain twin only for CPU tensors."""
+    from minpaxos_tpu_torch.models.minpaxos import (
+        ExecResult,
+        MinPaxosConfig,
+        MsgBatch,
+        Outbox,
+        init_replica,
+    )
+    from minpaxos_tpu_torch.ops import substeps
+
+    cfg = MinPaxosConfig(n_replicas=3, window=8, inbox=4, exec_batch=2, kv_pow2=4,
+                         catchup_rows=2, recovery_rows=2)
+    st = init_replica(cfg, [0], device="cpu")
+    ob = Outbox(MsgBatch.empty(1, 4, "cpu"), torch.zeros((1, 4), dtype=torch.int32),
+                torch.zeros((1, 4), dtype=torch.bool))
+    z = torch.zeros((1, 2), dtype=torch.int32)
+    ex = ExecResult(torch.zeros(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32),
+                    z, z, z.bool(), z, z, z)
+    row = substeps.pack_outputs(st, ob, ex)
+    assert row.shape == (1, substeps.row_width(4, 2, 3))
+    with pytest.raises(RuntimeError):
+        substeps.pack_outputs(st, ob, ex, out=torch.empty(row.shape, dtype=torch.int32,
+                                                          device="meta"))
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        substeps._pack_kernel(st, ob, ex, row, st.window_base)
