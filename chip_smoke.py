@@ -14,7 +14,12 @@ Phases, each printing one JSON line:
               seeded inputs; integer results, compared for equality.
               Besides: K7 at a batch of 1,280 replicas, K4 insert on
               2^18-way tables 90% full, K5 vote bits with five replicas
-              and K6 at the server's default window of 16,384 slots.
+              and K6 at the server's default window of 16,384 slots. K8
+              (the round's PROPOSE rows: a round where cmd_id wraps, a
+              hot-key batch, the numpy twin too), K9 (round_open /
+              round_close, ring armed and off, a drain sub-step) and K10
+              (slot_write in modes A and B, gather_rows in every form,
+              on adversarial inboxes) at each path's shapes.
               Device times of kernel, plain version and, where one
               PyTorch call computes the same function, that call: each
               captured N times in one CUDA graph and replayed between
@@ -26,8 +31,11 @@ Phases, each printing one JSON line:
               for minpaxos, classic and mencius.
 4. mainpath — ShardedCluster at the 1M-instance deployment (G=256
               groups x R=5 replicas x W=4096 slots, p=512 proposals per
-              round per group, k=32 rounds per dispatch): elect, run the
-              measured dispatches, drain, then check committed ==
+              round per group, k=32 rounds per dispatch), with the
+              telemetry ring armed as bench.py arms it: elect, run the
+              measured dispatches, drain, then check the ring (a row
+              per round run, committed_delta and injected_rows summing
+              to the run's counts, in_flight 0 at the end), committed ==
               injected, the latency histogram's count, replica
               agreement, and every acknowledged write of every group
               read back, with its last value, from all five replicas'
@@ -41,7 +49,12 @@ Phases, each printing one JSON line:
               plus that every owner proposed exactly p rows in every
               round (its crt_own), so slot order equals round order for
               the read-back's replay; counts set to 0 just before it.
-6. tcp      — the TCP serving deployment, BASELINE config 1 at the shape
+6. variants — at the MinPaxos widths cut to 16 groups: the resident
+              loop with substeps=2 drains with committed == injected,
+              and run_fused from the same seed gives the resident loop's
+              commit stream (per-round cursors against the ring's rows)
+              and its final state.
+7. tcp      — the TCP serving deployment, BASELINE config 1 at the shape
               bench_tcp.py runs: a master and three durable MinPaxos
               replica servers (-window 2048 -inbox 1024 -kvpow2 18
               -execbatch 128), each its own process and CUDA context on
@@ -71,6 +84,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -90,6 +104,8 @@ EXT = 512
 M_P, M_INBOX, M_EXT, M_E = 64, 2048, 64, 320
 M_CU, M_REC, M_NOOP, M_KV_POW2, M_KEY_SPACE = 128, 64, 8, 14, 8192
 DISPATCHES = 4  # measured k-round dispatches; the rate skips the first
+MAX_DRAIN = 12  # drain dispatches a resident run may take
+VG, V_DISPATCHES = 16, 2  # the variants phase: groups, loaded dispatches
 # the TCP deployment: BASELINE config 1 at the shape bench_tcp.py:56 runs
 # (master + 3 durable MinPaxos replica servers, one process each),
 # gen_workload(20000, seed=42) PUTs closed loop in batches of 512 with
@@ -135,20 +151,25 @@ PATHS = {
 KERNELS = {
     "minpaxos": ("route", "scatter_max", "seg_scan_max", "commit_frontier",
                  "kv_lookup", "kv_insert", "ack_runs", "vote_bits",
-                 "scatter_vote_bits"),
+                 "scatter_vote_bits", "propose_rows", "round_open",
+                 "round_close", "slot_write"),
     "mencius": ("route", "scatter_max", "seg_scan_max", "commit_frontier",
                 "kv_lookup", "kv_insert", "ack_runs", "vote_bits",
-                "scatter_vote_bits", "exec_select"),
+                "scatter_vote_bits", "exec_select", "propose_rows",
+                "round_open", "round_close", "gather_rows"),
     # every replica server's step and packing (no routing: the
     # transport delivers the rows)
     "tcp": ("scatter_max", "seg_scan_max", "commit_frontier", "kv_lookup",
             "kv_insert", "ack_runs", "vote_bits", "scatter_vote_bits",
-            "pack_outputs"),
+            "pack_outputs", "slot_write"),
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak
 # the published non-tensor-core rate (float32, 67 TFLOP/s); the kernels'
 # integer ALU work runs at most this fast, so ops / this is a lower bound
 ALU_OPS_PER_S = 67e12
+
+
+EMPTY_GRAPHS: list[str] = []  # timed calls whose CUDA graph captured nothing
 
 
 def emit(obj) -> None:
@@ -195,9 +216,16 @@ def graph_ms(fn, iters: int = 20, reset=None) -> float:
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+    if any("Graph is empty" in str(w.message) for w in caught):
+        # nothing was launched on the capture stream: no time to report
+        # (the compare phase fails on any such call)
+        EMPTY_GRAPHS.append(getattr(fn, "__qualname__", str(fn)))
+        return None
     graph.replay()
     if reset is not None:
         reset()
@@ -509,9 +537,210 @@ def compare_kernels(dev, seed: int, sh: Shapes) -> tuple[dict, float]:
             ranked=int((got[0] < S).sum().item()),
             shapes=f"window [{B},{S}] (keys, status, op, executed), cursors [{B}] "
                    f"-> slot_of [{B},{E}], newly_exec [{B},{S}]")
+    res.update(compare_loop_kernels(dev, g, sh))
     torch.cuda.synchronize()
     return res, apply_err
 
+
+def compare_loop_kernels(dev, g, sh: Shapes) -> dict:
+    """K8 (the round's PROPOSE rows), K9 (the round's bookkeeping) and
+    K10 (both slot-write forms) against their plain twins at the path's
+    shapes, on adversarial inputs; K8 and K9 only on the resident paths."""
+    from types import SimpleNamespace as NS
+
+    from minpaxos_tpu_torch.models.minpaxos import MsgBatch
+    from minpaxos_tpu_torch.ops import resident, winner
+    from minpaxos_tpu_torch.ops import workload as wl
+
+    G, R = sh.groups, sh.replicas
+    B = sh.batch or G * R
+    M, S = sh.M, sh.S
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, device=dev, dtype=torch.int32, generator=g)
+
+    def rb(p, shape):
+        return torch.rand(shape, device=dev, generator=g) < p
+
+    res = {}
+    if sh.path != "tcp":
+        # K8: the deployment's rows (MinPaxos: p = ext to the leader;
+        # Mencius: p = ext to every owner), a round where cmd_id wraps in
+        # int32, and a hot-key batch; the numpy twin too
+        ext, count, leader, ks = ((EXT, P, 0, KEY_SPACE) if sh.path == "minpaxos"
+                                  else (M_EXT, M_P, -1, M_KEY_SPACE))
+        err = 0.0
+        for rnd, hot in ((7, 0), (2 ** 31 // ext + 1, 0), (3, 30)):
+            args = (R, G, ext, count, leader, rnd, 11, ks, hot, 8)
+            got = wl.propose_batch(*args, device=dev)
+            err = max(err, max_abs_err(tuple(got), tuple(wl._propose_rows_plain(*args, dev))))
+            host = wl.propose_batch_host(*args)
+            err = max(err, max_abs_err(tuple(got), tuple(torch.from_numpy(x).to(dev)
+                                                         for x in host)))
+        args = (R, G, ext, count, leader, 7, 11, ks, 0, 8)
+        res["propose_rows"] = dict(
+            err=err, **times(lambda: wl.propose_batch(*args, device=dev),
+                             lambda: wl._propose_rows_plain(*args, dev)),
+            library_what="none: no PyTorch call computes Threefry-2x32",
+            bytes=12 * B * ext * 4,
+            # three Threefry-2x32 of ~110 integer operations per (group,
+            # row) and a select per written word
+            ops=G * ext * 330 + 12 * B * ext,
+            shapes=f"[12,{B},{ext}] rows, {count} live per replica, hot_pct 0 / 30")
+
+        # K9: cursors of a mid-run round (snapshot before the step, the
+        # step's effect after), pending inboxes [B, cap], a ring of
+        # stamps, the telemetry ring wrapping
+        W, Mp, bins = S, sh.cap, 512
+        u0 = ri(1000, 6000, (B,))
+        pre = NS(committed_upto=u0, crt_inst=u0 + 1 + ri(0, 1500, (B,)),
+                 executed_upto=u0 - ri(0, 300, (B,)))
+        post = NS(committed_upto=u0 + ri(0, 700, (B,)),
+                  crt_inst=pre.crt_inst + ri(0, 700, (B,)),
+                  executed_upto=pre.executed_upto + ri(0, 500, (B,)))
+        post.crt_inst = torch.maximum(post.crt_inst, post.committed_upto + 1)
+        if sh.path == "minpaxos":
+            post.prepared = rb(0.9, (B,))
+        kind = torch.where(rb(0.3, (B, Mp)), ri(1, 12, (B, Mp)), 0)
+        kind2 = torch.where(rb(0.1, (B, Mp)), ri(1, 12, (B, Mp)), 0)
+        rnd, base, rows = 300, 9, 160  # (300 - 9) mod 160: the ring wrapped
+        inj0 = torch.where(rb(0.8, (G, W)), ri(0, rnd, (G, W)), -1)
+        bufs = dict(inj=inj0, hist=ri(0, 50, (bins,)),
+                    tel=torch.full((rows, 9), -1, dtype=torch.int32, device=dev),
+                    scr=resident.new_scratch(G, dev))
+        cur = max(leader, 0)
+        injected = G * count * (1 if leader >= 0 else R)
+
+        def round_(kernel, b, tel_on):
+            op_ = resident.round_open if kernel else resident._round_open_plain
+            cl_ = resident.round_close if kernel else resident._round_close_plain
+            tel = b["tel"] if tel_on else b["tel"][:0]
+            op_(b["scr"], pre, kind, cur, G, count, leader, True, tel_on)
+            if tel_on:  # a drain sub-step's delivery
+                op_(b["scr"], pre, kind2, cur, G, 0, leader, False, True)
+            cl_(b["scr"], b["inj"], b["hist"], tel, post, cur, rnd, base, injected)
+            return tuple(b.values())
+
+        err_o = err_c = 0.0
+        for tel_on in (True, False):
+            a = {k: v.clone() for k, v in bufs.items()}
+            c = {k: v.clone() for k, v in bufs.items()}
+            e = max_abs_err(round_(True, a, tel_on), round_(False, c, tel_on))
+            err_o, err_c = max(err_o, e), max(err_c, e)
+        work = {k: v.clone() for k, v in bufs.items()}
+        res["round_open"] = dict(
+            err=err_o, **times(
+                lambda: resident.round_open(work["scr"], pre, kind, cur, G, count,
+                                            leader, True, True),
+                lambda: resident._round_open_plain(work["scr"], pre, kind, cur, G,
+                                                   count, leader, True, True)),
+            library_what="none",
+            bytes=B * Mp * 4 + 3 * G * 4 * 2,
+            ops=B * Mp * 2,  # a compare and an add per pending row
+            shapes=f"pending kind [{B},{Mp}], cursors [{B}] -> scratch [{3 * G + 8}]")
+        # the histogram part alone, as one library call (torch.bincount
+        # sizes its output from the data, so it cannot be graph-captured:
+        # its time is host-issued)
+        pos = torch.arange(W, device=dev)[None, :]
+        c_new = post.crt_inst.view(G, R)[:, cur, None]
+        u_prev = pre.committed_upto.view(G, R)[:, cur, None]
+        c_prev = pre.crt_inst.view(G, R)[:, cur, None]
+        inj1 = torch.where(c_prev + torch.remainder(pos - c_prev, W) < c_new, rnd, inj0)
+        up = u_prev + 1
+        wts = ((up + torch.remainder(pos - up, W)
+                <= post.committed_upto.view(G, R)[:, cur, None]) & (inj1 >= 0)).flatten().float()
+        hbins = (rnd - inj1).clamp(0, bins - 1).flatten().long()
+        # what the function must touch: the stamps written over [c_prev,
+        # c_new) and read over (u_prev, u_new] of each group, clipped to
+        # the ring
+        n_stamp = int((c_new[:, 0] - c_prev[:, 0]).clamp(0, W).sum().item())
+        n_samp = int((post.committed_upto.view(G, R)[:, cur] - u_prev[:, 0])
+                     .clamp(0, W).sum().item())
+        tel_w = work["tel"]
+        row = times(lambda: resident.round_close(work["scr"], work["inj"], work["hist"],
+                                                 tel_w, post, cur, rnd, base, injected),
+                    lambda: resident._round_close_plain(work["scr"], work["inj"],
+                                                        work["hist"], tel_w, post, cur,
+                                                        rnd, base, injected))
+        row["library_ms"] = cuda_ms(lambda: torch.bincount(hbins, weights=wts, minlength=bins))
+        res["round_close"] = dict(
+            err=err_c, **row,
+            library_what="torch.bincount with weights: the histogram part only, "
+                         "host-issued",
+            stamped=n_stamp, sampled=n_samp,
+            bytes=(n_stamp + n_samp) * 4 + 2 * bins * 4 + 6 * G * 4,
+            ops=n_stamp * 2 + n_samp * 6,  # a position per stamp; a clip, an add per sample
+            shapes=f"ring [{G},{W}] ({n_stamp} stamped, {n_samp} sampled), "
+                   f"histogram [{bins}], telemetry ring [{rows},9]")
+
+    # K10: slot_write (fused writes A and B) and gather_rows (Mencius's
+    # writes) on adversarial inboxes: many rows on four slots in both
+    # sections, targets outside the window, sections mixed (keys at
+    # M + row), op values above 255, statuses around COMMITTED
+    hot = ri(0, S, (B, 4))
+    tgt = torch.where(rb(0.5, (B, M)), torch.gather(hot, 1, ri(0, 4, (B, M)).long()),
+                      ri(-3, S + 5, (B, M)))
+    sec, ok = rb(0.5, (B, M)), rb(0.7, (B, M))
+    inbox = MsgBatch(*[ri(-2, 300, (B, M)) for _ in range(12)])
+    old = [ri(-1, 1 << 20, (B, S)) for _ in winner.SLOT_COLS]
+    old[1] = torch.tensor([0, 2, 3, 4, 5], dtype=torch.uint8, device=dev)[ri(0, 5, (B, S)).long()]
+    old[2] = ri(0, 4, (B, S)).to(torch.uint8)
+    old = tuple(old)
+    me, dball = ri(0, R, (B,)), ri(0, 99, (B,))
+    err = 0.0
+    for modes, cb in ((winner.WRITE_A, None), (winner.WRITE_B, dball)):
+        err = max(err, max_abs_err(
+            winner.slot_write(modes, S, tgt, sec, ok, inbox, old, me, cb, n_replicas=R),
+            winner._slot_write_plain(modes, S, tgt, sec, ok, inbox, old, me, cb, R)))
+    keyval = torch.where(sec, M + torch.arange(M, device=dev, dtype=torch.int32), torch.arange(
+        M, device=dev, dtype=torch.int32))
+    hits = int((winner._scatter_max_plain(S, tgt, keyval, ok, -1)[:, :S] >= 0).sum().item())
+    tidx = winner._targets(S, tgt, ok).long()
+    in_cols = [getattr(inbox, f) for f in winner.IN_COLS]
+
+    def lib_sw():
+        k = torch.full((B, S + 1), -1, dtype=torch.int32, device=dev).scatter_reduce_(
+            1, tidx, keyval, reduce="amax", include_self=True)
+        rw = torch.remainder(k[:, :S], M).long()
+        return [torch.gather(c, 1, rw) for c in in_cols]
+
+    slot_bytes = 8 * 4 + 2  # eight int32 and two uint8 columns per slot
+    res["slot_write"] = dict(
+        err=err, **times(
+            lambda: winner.slot_write(winner.WRITE_A, S, tgt, sec, ok, inbox, old, me,
+                                      n_replicas=R),
+            lambda: winner._slot_write_plain(winner.WRITE_A, S, tgt, sec, ok, inbox, old,
+                                             me, None, R), lib_sw),
+        library_what="scatter_reduce_ (amax) + one gather per inbox column "
+                     "(a composition, no select)",
+        hit_slots=hits,
+        bytes=B * S * 2 * slot_bytes + B * M * 6 + hits * 9 * 4,
+        ops=B * M * 3 + B * S * 12,
+        shapes=f"inbox [{B},{M}] x 9 cols, window [{B},{S}] x 10 cols (write A)")
+    win, whit = winner.slot_winner(S, torch.where(ok, tgt, S), ok)
+    err = 0.0
+    for mode in (winner.SlotMode(winner.BAL_ROW, winner.ST_ACCEPTED, winner.V_KEEP),
+                 winner.SlotMode(winner.BAL_ROW, winner.ST_COMMIT, winner.V_KEEP),
+                 winner.SlotMode(winner.BAL_ROW, winner.ST_ACCEPTED, winner.V_ME),
+                 winner.SlotMode(winner.BAL_CONST, winner.ST_ACCEPTED, winner.V_ME)):
+        err = max(err, max_abs_err(
+            winner.gather_rows(mode, win, whit, inbox, old, me, n_replicas=R),
+            winner._gather_rows_plain(mode, win, whit, inbox, old, me, None, R)))
+    mode = winner.SlotMode(winner.BAL_ROW, winner.ST_ACCEPTED, winner.V_KEEP)
+    wr = win.clamp(min=0).long()
+    hits = int(whit.sum().item())
+    res["gather_rows"] = dict(
+        err=err, **times(
+            lambda: winner.gather_rows(mode, win, whit, inbox, old, me, n_replicas=R),
+            lambda: winner._gather_rows_plain(mode, win, whit, inbox, old, me, None, R),
+            lambda: [torch.gather(c, 1, wr) for c in in_cols[:8]]),
+        library_what="one gather per inbox column (no select)",
+        hit_slots=hits,
+        bytes=B * S * (4 + 1) + B * S * 2 * (slot_bytes - 4) + hits * 8 * 4,
+        ops=B * S * 11,
+        shapes=f"win/hit [{B},{S}], inbox [{B},{M}] x 8 cols -> window [{B},{S}] x 9 cols "
+               f"(Mencius write_rows)")
+    return res
 
 
 def tcp_cfg(n_replicas: int = TCP_N):
@@ -738,7 +967,7 @@ REPLACES = {
     "route": ("minpaxos_tpu_torch/kernels/csrc/route.cu",
               "minpaxos_tpu/ops/segscatter.py:45"),
     "scatter_max": ("minpaxos_tpu_torch/kernels/csrc/winner.cu",
-                    "minpaxos_tpu/models/minpaxos.py:546"),
+                    "minpaxos_tpu/models/minpaxos.py:534"),
     "seg_scan_max": ("minpaxos_tpu_torch/kernels/csrc/scan.cu",
                      "minpaxos_tpu/ops/scan.py:21"),
     "commit_frontier": ("minpaxos_tpu_torch/kernels/csrc/scan.cu",
@@ -757,6 +986,16 @@ REPLACES = {
                     "minpaxos_tpu/models/mencius.py:810"),
     "pack_outputs": ("minpaxos_tpu_torch/kernels/csrc/substeps.cu",
                      "minpaxos_tpu/ops/substeps.py:112"),
+    "propose_rows": ("minpaxos_tpu_torch/kernels/csrc/workload.cu",
+                     "minpaxos_tpu/ops/workload.py:106"),
+    "round_open": ("minpaxos_tpu_torch/kernels/csrc/resident.cu",
+                   "minpaxos_tpu/parallel/sharded.py:303"),
+    "round_close": ("minpaxos_tpu_torch/kernels/csrc/resident.cu",
+                    "minpaxos_tpu/parallel/sharded.py:336"),
+    "slot_write": ("minpaxos_tpu_torch/kernels/csrc/slotwrite.cu",
+                   "minpaxos_tpu/models/minpaxos.py:546"),
+    "gather_rows": ("minpaxos_tpu_torch/kernels/csrc/slotwrite.cu",
+                    "minpaxos_tpu/ops/winner.py:40"),
 }
 
 
@@ -769,7 +1008,7 @@ def profile_rounds(sc, rounds: int, p: int, out_dir: str, tag: str) -> dict:
     ``out_dir``, file names prefixed with ``tag``."""
     from torch.profiler import ProfilerActivity, profile
 
-    sc.begin_resident()
+    sc.begin_resident(telemetry_rounds=rounds + 2)
     sc.run_resident(2, p)  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -861,6 +1100,33 @@ def settle(sc, rounds: int = 4):
     return n, agree()
 
 
+def telemetry_summary(tel: np.ndarray, rounds_run: int, committed_gain: int,
+                      injected: int) -> tuple[dict, list]:
+    """The telemetry ring's readback against the run: the fields the
+    resident lines print, and the checks that failed (rows written ==
+    rounds run since arming, committed_delta sums to the committed
+    count gained, the last row's in_flight is 0 after the drain,
+    injected_rows sums to the injected count)."""
+    from minpaxos_tpu_torch.obs import recorder as rc
+
+    rec = dict(tel_rows_written=len(tel),
+               tel_committed_sum=int(tel[:, rc.TEL_COMMITTED].sum()) if len(tel) else 0,
+               tel_injected_sum=int(tel[:, rc.TEL_INJECTED].sum()) if len(tel) else 0,
+               tel_last_in_flight=int(tel[-1, rc.TEL_IN_FLIGHT]) if len(tel) else None,
+               tel_max_inbox_hwm=int(tel[:, rc.TEL_INBOX_HWM].max()) if len(tel) else None,
+               tel_prepared_shards_last=int(tel[-1, rc.TEL_PREPARED]) if len(tel) else None)
+    bad = []
+    if rec["tel_rows_written"] != rounds_run:
+        bad.append(f"telemetry rows {rec['tel_rows_written']} != rounds run {rounds_run}")
+    if rec["tel_committed_sum"] != committed_gain:
+        bad.append(f"telemetry committed {rec['tel_committed_sum']} != gained {committed_gain}")
+    if rec["tel_last_in_flight"] != 0:
+        bad.append(f"telemetry's last in_flight is {rec['tel_last_in_flight']}")
+    if rec["tel_injected_sum"] != injected:
+        bad.append(f"telemetry injected {rec['tel_injected_sum']} != injected {injected}")
+    return rec, bad
+
+
 def main_path(dev, seed: int, dispatches: int, profile_dir: str | None = None) -> dict:
     from minpaxos_tpu_torch import kernels as K
     from minpaxos_tpu_torch.models.minpaxos import MinPaxosConfig
@@ -874,7 +1140,10 @@ def main_path(dev, seed: int, dispatches: int, profile_dir: str | None = None) -
     sc = ShardedCluster(cfg, G, ext_rows=EXT, key_space=KEY_SPACE, seed=seed,
                         device=dev)
     sc.elect(0)
-    sc.begin_resident()
+    committed0 = sc.committed()[0]
+    # the telemetry ring armed as bench.py arms it: every round the run
+    # can take (measured + the drain budget) fits
+    sc.begin_resident(telemetry_rounds=(dispatches + MAX_DRAIN) * K_ROUNDS)
     round0 = sc._seed
     # dispatch 1 warms the allocator; the rate is taken over the rest
     marks = []
@@ -886,15 +1155,18 @@ def main_path(dev, seed: int, dispatches: int, profile_dir: str | None = None) -
     steady_rounds = (dispatches - 1) * K_ROUNDS
     committed_measured = marks[-1][1] - marks[0][1]
     drain_dispatches = 0
-    while in_flight and drain_dispatches < 12:
+    while in_flight and drain_dispatches < MAX_DRAIN:
         committed, in_flight = sc.run_resident(K_ROUNDS, 0)
         drain_dispatches += 1
     launches = K.launch_counts()
+    tel = sc.resident_telemetry()
     hist = sc.end_resident()
     if in_flight:
         fail("mainpath", f"did not drain: in_flight={in_flight}")
     settled, agree = settle(sc)
     injected = G * P * measured_rounds
+    tel_rec, tel_bad = telemetry_summary(
+        tel, (dispatches + drain_dispatches) * K_ROUNDS, committed - committed0, injected)
     drops = sc.ss.states.kv.dropped.view(G, R).cpu().numpy()
     dropped = int(drops.sum())
 
@@ -916,8 +1188,10 @@ def main_path(dev, seed: int, dispatches: int, profile_dir: str | None = None) -
         committed_inst_per_s=committed_measured / t_meas,
         p50_latency_rounds=p50, p99_latency_rounds=p99,
         max_memory_allocated=torch.cuda.max_memory_allocated(),
-        launches=launches)
+        **tel_rec, launches=launches)
     emit(rec)
+    if tel_bad:
+        fail("mainpath", "; ".join(tel_bad))
     if committed != injected:
         fail("mainpath", f"committed {committed} != injected {injected}")
     if n != committed:
@@ -955,7 +1229,7 @@ def mencius_path(dev, seed: int, dispatches: int, profile_dir: str | None = None
     K.reset_launches()
     sc = ShardedCluster(cfg, G, ext_rows=M_EXT, key_space=M_KEY_SPACE, seed=seed,
                         device=dev, protocol="mencius")
-    sc.begin_resident()
+    sc.begin_resident(telemetry_rounds=(dispatches + MAX_DRAIN) * K_ROUNDS)
     round0 = sc._seed
     owner = torch.arange(R, dtype=torch.int32, device=dev)
     aligned = True
@@ -970,15 +1244,18 @@ def mencius_path(dev, seed: int, dispatches: int, profile_dir: str | None = None
     steady_rounds = (dispatches - 1) * K_ROUNDS
     committed_measured = marks[-1][1] - marks[0][1]
     drain_dispatches = 0
-    while in_flight and drain_dispatches < 12:
+    while in_flight and drain_dispatches < MAX_DRAIN:
         committed, in_flight = sc.run_resident(K_ROUNDS, 0)
         drain_dispatches += 1
     launches = K.launch_counts()
+    tel = sc.resident_telemetry()
     hist = sc.end_resident()
     if in_flight:
         fail("mencius", f"did not drain: in_flight={in_flight}")
     settled, agree = settle(sc)
     injected = G * M_P * R * measured_rounds
+    tel_rec, tel_bad = telemetry_summary(
+        tel, (dispatches + drain_dispatches) * K_ROUNDS, committed, injected)
     # slots in the frontier that hold no proposal: skip-cede and takeover
     # no-op fills (none expected with every owner alive and aligned)
     noop_fills = committed - injected
@@ -1003,8 +1280,10 @@ def mencius_path(dev, seed: int, dispatches: int, profile_dir: str | None = None
         committed_inst_per_s=committed_measured / t_meas,
         p50_latency_rounds=p50, p99_latency_rounds=p99,
         max_memory_allocated=torch.cuda.max_memory_allocated(),
-        launches=launches)
+        **tel_rec, launches=launches)
     emit(rec)
+    if tel_bad:
+        fail("mencius", "; ".join(tel_bad))
     if not aligned:
         fail("mencius", "an owner did not propose exactly p rows in every round")
     if committed != injected:
@@ -1025,6 +1304,90 @@ def mencius_path(dev, seed: int, dispatches: int, profile_dir: str | None = None
         emit(profile_rounds(sc, 4, M_P, profile_dir, "mencius"))
     return rec
 
+
+
+def variants(dev, seed: int) -> dict:
+    """The resident loop's other forms at the MinPaxos deployment's
+    widths, cut to VG groups: (a) ``run_resident(..., substeps=2)``
+    must drain with committed == injected; (b) ``run_fused`` from the
+    same seed as a resident run (telemetry ring armed) must give the
+    same commit stream: its per-round [k, G] cursor histories summed
+    over groups equal the ring's committed_delta, in_flight and
+    assigned of every round, and both runs end in the same state."""
+    from minpaxos_tpu_torch import kernels as K
+    from minpaxos_tpu_torch.models.cluster import numpy_leaves
+    from minpaxos_tpu_torch.models.minpaxos import MinPaxosConfig
+    from minpaxos_tpu_torch.obs import recorder as rc
+    from minpaxos_tpu_torch.parallel.sharded import ShardedCluster
+
+    cfg = MinPaxosConfig(n_replicas=R, window=W, inbox=INBOX, exec_batch=P,
+                         kv_pow2=KV_POW2, catchup_rows=CU_ROWS,
+                         recovery_rows=REC_ROWS)
+    injected = VG * P * V_DISPATCHES * K_ROUNDS
+
+    def boot():
+        sc = ShardedCluster(cfg, VG, ext_rows=EXT, key_space=KEY_SPACE, seed=seed,
+                            device=dev)
+        sc.elect(0)
+        return sc
+
+    def resident(substeps):
+        sc = boot()
+        sc.begin_resident(telemetry_rounds=(V_DISPATCHES + MAX_DRAIN) * K_ROUNDS)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        res = [sc.run_resident(K_ROUNDS, P, substeps) for _ in range(V_DISPATCHES)]
+        while res[-1][1] and len(res) < V_DISPATCHES + MAX_DRAIN:
+            res.append(sc.run_resident(K_ROUNDS, 0, substeps))
+        wall = time.perf_counter() - t0
+        tel = sc.resident_telemetry()
+        hist = sc.end_resident()
+        return sc, res, tel, hist, K.launch_counts(), wall
+
+    rec: dict = dict(phase="variants", groups=VG, replicas=R, window=W,
+                     proposals_per_round=P, rounds_per_dispatch=K_ROUNDS,
+                     injected=injected)
+    bad = []
+    sc2, res2, tel2, hist2, l2, wall2 = resident(2)
+    rec.update(substeps2_dispatches=len(res2), substeps2_committed=res2[-1][0],
+               substeps2_in_flight=res2[-1][1], substeps2_hist_count=int(hist2.sum()),
+               substeps2_p50_rounds=latency_stats(hist2)[1],
+               substeps2_ms_per_round=1e3 * wall2 / (len(res2) * K_ROUNDS),
+               substeps2_tel_inbox_rows=int(tel2[:, rc.TEL_INBOX_ROWS].sum()))
+    if res2[-1] != (injected, 0) or int(hist2.sum()) != injected:
+        bad.append(f"substeps=2: {res2[-1]} (committed, in_flight), histogram "
+                   f"{int(hist2.sum())}, injected {injected}")
+    del sc2
+    sc1, res1, tel1, hist1, l1, _ = resident(1)
+    scf = boot()
+    c0 = scf.committed()[0]
+    hists = [scf.run_fused(K_ROUNDS, P if i < V_DISPATCHES else 0)
+             for i in range(len(res1))]
+    ups = np.concatenate([h[0] for h in hists]).astype(np.int64)
+    crts = np.concatenate([h[1] for h in hists]).astype(np.int64)
+    tot = (ups + 1).sum(1)
+    stream_eq = (
+        np.array_equal(np.diff(np.concatenate([[c0], tot])), tel1[:, rc.TEL_COMMITTED])
+        and np.array_equal((crts - 1 - ups).sum(1), tel1[:, rc.TEL_IN_FLIGHT])
+        and np.array_equal(np.diff(crts.sum(1)), tel1[1:, rc.TEL_ASSIGNED])
+        and [r[0] for r in res1] == [int(tot[(i + 1) * K_ROUNDS - 1])
+                                     for i in range(len(res1))])
+    state_eq = all(np.array_equal(a, b) for a, b in zip(numpy_leaves(sc1.ss),
+                                                        numpy_leaves(scf.ss)))
+    rec.update(fused_rounds=len(ups), fused_committed=int(tot[-1]),
+               resident_committed=res1[-1][0], commit_stream_equal=stream_eq,
+               final_state_equal=state_eq,
+               launches_resident={k: v for k, v in l1.items() if v})
+    if not (stream_eq and state_eq and res1[-1] == (injected, 0)):
+        bad.append(f"run_fused vs resident: stream equal {stream_eq}, state equal "
+                   f"{state_eq}, resident {res1[-1]}")
+    for name in ("propose_rows", "round_open", "round_close", "slot_write"):
+        if not (l1.get(name) and l2.get(name)):
+            bad.append(f"{name} never launched in a variants run")
+    emit(rec)
+    if bad:
+        fail("variants", "; ".join(bad))
+    return rec
 
 
 def _pctl(x, q):
@@ -1332,6 +1695,9 @@ def main() -> None:
     bad = [f"{k}@{p}" for p, r in res.items() for k, v in r.items() if v["err"] != 0]
     bad += [k for k, v in extra.items() if k.startswith(("pack_outputs", "kv_insert",
             "vote_bits", "exec_select")) and "displaced" not in k and v != 0]
+    if EMPTY_GRAPHS:
+        fail("compare", f"timed calls launched nothing on the capture stream: "
+                        f"{EMPTY_GRAPHS}")
     if bad or any(apply_err.values()):
         fail("compare", f"kernels disagree with their plain versions: {bad}, "
                         f"kv_apply err {apply_err}")
@@ -1354,6 +1720,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     recs["mencius"] = mencius_path(dev, args.seed, DISPATCHES, args.profile)
     torch.cuda.empty_cache()
+    variants(dev, args.seed)
+    torch.cuda.empty_cache()
     # the profiler runs after the resident paths, so it cannot weigh on
     # their timing
     busy = dispatch_profile(*probe)
@@ -1372,7 +1740,8 @@ def main() -> None:
             t_bytes = 1e3 * v["bytes"] / HBM_BYTES_PER_S
             t_ops = 1e3 * v["ops"] / ALU_OPS_PER_S
             table.append(dict(
-                name=name if path == "minpaxos" or name in ("exec_select", "pack_outputs")
+                name=name if path == "minpaxos" or name in ("exec_select", "pack_outputs",
+                                                            "gather_rows")
                 else f"{name}@{path}",
                 route="cuda", source=src, replaces=repl, path=path,
                 launches=recs[path]["launches"].get(name, 0), max_abs_err=v["err"],
@@ -1380,6 +1749,8 @@ def main() -> None:
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=v["library_ms"]))
+            if v.get("library_what"):
+                table[-1]["library_what"] = v["library_what"]
     emit({"kernels": table})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

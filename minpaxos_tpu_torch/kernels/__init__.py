@@ -30,7 +30,7 @@ HERE = Path(__file__).resolve().parent
 CSRC = HERE / "csrc"
 BUILD = HERE / "build"
 SOURCES = ("route", "winner", "scan", "kvstore", "ackruns", "mencius_exec",
-           "substeps")
+           "substeps", "workload", "resident", "slotwrite")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -149,6 +149,7 @@ def check(libname: str, rc: int, what: str) -> None:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+U = ctypes.c_uint
 L = ctypes.c_longlong
 
 

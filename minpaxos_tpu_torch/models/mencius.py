@@ -19,6 +19,9 @@ differences of form are those of ``models/minpaxos.py``, plus:
 
 * votes/pvotes are int32 here (uint16 in the JAX state); popcounts are
   the int32 SWAR ``popcount``.
+* the slot writes of steps 1, 2, 6 and 7b are one ``gather_rows`` each
+  (ops/winner.py, the K10 kernel) for the winner that K2's
+  ``slot_winner`` (or step 1's searchsorted) picked.
 * step 11's slot choice (window lexsort, poison scan, gap barrier,
   ranks) is kernel K6 (``ops/mencius_exec.py``); its result feeds the
   KV engine (K3 + K4) through the same gathers as the JAX step.
@@ -51,7 +54,18 @@ from minpaxos_tpu_torch.ops.util import (
     popcount,
     take,
 )
-from minpaxos_tpu_torch.ops.winner import gather_row, scatter_max, slot_winner
+from minpaxos_tpu_torch.ops.winner import (
+    BAL_CONST,
+    BAL_ROW,
+    ST_ACCEPTED,
+    ST_COMMIT,
+    V_KEEP,
+    V_ME,
+    SlotMode,
+    gather_rows,
+    scatter_max,
+    slot_winner,
+)
 from minpaxos_tpu_torch.models.cluster import (
     Cluster,
     cluster_step_impl,
@@ -67,6 +81,8 @@ from minpaxos_tpu_torch.models.minpaxos import (
     _rel,
     concat_rows,
     make_ballot,
+    set_slot_cols,
+    slot_cols,
 )
 from minpaxos_tpu_torch.wire.messages import (
     ACCEPTED,
@@ -172,14 +188,10 @@ def mencius_step_impl(cfg: MinPaxosConfig, state: MenciusState, inbox: MsgBatch,
     out = SimpleNamespace(**MsgBatch.empty(B, M, dev)._asdict())
     dst = torch.full((B, M), -1, dtype=I32, device=dev)
 
-    def write_rows(win, hit, status=None):
-        """Columns of the winning rows into the window (gather_row)."""
-        st.ballot = gather_row(win, hit, inbox.ballot, st.ballot)
-        if status is not None:
-            st.status = status
-        st.op = gather_row(win, hit, inbox.op, st.op)
-        for f in _COLS:
-            setattr(st, f, gather_row(win, hit, getattr(inbox, f), getattr(st, f)))
+    def write_rows(win, hit, mode):
+        """Columns of the winning rows into the window (K10 gather_rows)."""
+        set_slot_cols(st, gather_rows(mode, win, hit, inbox, slot_cols(st), me,
+                                      n_replicas=R))
 
     # ---- 1. PROPOSE into my owned slots ----
     csum_p = cumsum32(is_propose.to(I32), 1)
@@ -194,12 +206,8 @@ def mencius_step_impl(cfg: MinPaxosConfig, state: MenciusState, inbox: MsgBatch,
     win_p = torch.searchsorted(csum_p, (rank_p.clamp(0, M - 1) + 1).contiguous(),
                                out_int32=True)
     win_p = where(hit_p, win_p, -1)
-    st.ballot = where(hit_p, 0, st.ballot)
-    st.status = where(hit_p, ACCEPTED, st.status)
-    st.op = gather_row(win_p, hit_p, inbox.op, st.op)
-    for f in _COLS:
-        setattr(st, f, gather_row(win_p, hit_p, getattr(inbox, f), getattr(st, f)))
-    st.votes = where(hit_p, col(me_bit), st.votes)
+    # ballot 0, ACCEPTED, the owner's own vote
+    write_rows(win_p, hit_p, SlotMode(BAL_CONST, ST_ACCEPTED, V_ME))
     n_prop = fits.sum(1, dtype=I32)
     st.crt_inst = torch.maximum(st.crt_inst, st.crt_own + R * n_prop - R + 1)
     st.crt_own = st.crt_own + R * n_prop
@@ -230,7 +238,7 @@ def mencius_step_impl(cfg: MinPaxosConfig, state: MenciusState, inbox: MsgBatch,
     ab_max = scatter_max(S, rel_a, inbox.ballot, acc_pre, NO_BALLOT)
     acc_ok = acc_pre & (inbox.ballot == take(ab_max, rel_safe))
     win_a, hit_a = slot_winner(S, rel_a, acc_ok)
-    write_rows(win_a, hit_a, where(hit_a, ACCEPTED, st.status))
+    write_rows(win_a, hit_a, SlotMode(BAL_ROW, ST_ACCEPTED, V_KEEP))
     st.crt_inst = torch.maximum(
         st.crt_inst, masked_max(inbox.inst, is_accept & plausible, -1) + 1)
     st.max_recv_ballot = torch.maximum(st.max_recv_ballot,
@@ -311,7 +319,8 @@ def mencius_step_impl(cfg: MinPaxosConfig, state: MenciusState, inbox: MsgBatch,
     # ---- 6. COMMIT rows ----
     com_ok = is_commit & in_win
     win_c, hit_c = slot_winner(S, rel_a, com_ok)
-    write_rows(win_c, hit_c, where(hit_c, st.status.clamp(min=COMMITTED), st.status))
+    # a COMMIT never downgrades the status
+    write_rows(win_c, hit_c, SlotMode(BAL_ROW, ST_COMMIT, V_KEEP))
     st.crt_inst = torch.maximum(
         st.crt_inst,
         masked_max(torch.maximum(inbox.inst, inbox.last_committed), is_commit, -1) + 1)
@@ -345,8 +354,8 @@ def mencius_step_impl(cfg: MinPaxosConfig, state: MenciusState, inbox: MsgBatch,
     vb_max = scatter_max(S, rel_a, inbox.ballot, pir_ok, NO_BALLOT)
     pir_win = pir_ok & (inbox.ballot == take(vb_max, rel_safe))
     win_v, hit_v = slot_winner(S, rel_a, pir_win)
-    write_rows(win_v, hit_v, where(hit_v, ACCEPTED, st.status))
-    st.votes = where(hit_v, col(me_bit), st.votes)
+    # adopted values are ACCEPTED with the taker's own vote
+    write_rows(win_v, hit_v, SlotMode(BAL_ROW, ST_ACCEPTED, V_ME))
 
     # ---- 8. commit scan: my driven slots at a majority, frontier ----
     n_votes = popcount(st.votes)

@@ -15,6 +15,8 @@ Differences of form, not of result:
   are clipped explicitly.
 * ``.at[t].max(v, mode="drop")`` scatters into [B, S+1] through the K2
   kernel (ops/winner.py), the last column being the sink.
+* Fused writes A and B are one ``slot_write`` each (ops/winner.py, the
+  K10 kernel): the keyed winner and the ten window columns in one pass.
 * votes/pvotes are uint16 bit masks in the JAX state; the port carries
   them as int32 (torch on the CPU has no uint16 shifts or popcount) and
   exports uint16 (``to_numpy_state``).
@@ -50,7 +52,13 @@ from minpaxos_tpu_torch.ops.util import (
     popcount,
     take,
 )
-from minpaxos_tpu_torch.ops.winner import scatter_max
+from minpaxos_tpu_torch.ops.winner import (
+    SLOT_COLS,
+    WRITE_A,
+    WRITE_B,
+    scatter_max,
+    slot_write,
+)
 from minpaxos_tpu_torch.wire.messages import (
     ACCEPTED,
     COMMITTED,
@@ -274,6 +282,16 @@ def _rel(window_base, inst, window: int):
     return torch.where(ok, rel, window), ok
 
 
+def slot_cols(st) -> tuple:
+    """The window columns a slot write fills (ops/winner.py SLOT_COLS)."""
+    return tuple(getattr(st, f) for f in SLOT_COLS)
+
+
+def set_slot_cols(st, cols) -> None:
+    for f, v in zip(SLOT_COLS, cols):
+        setattr(st, f, v)
+
+
 def replica_step_impl(cfg: MinPaxosConfig, state: ReplicaState, inbox: MsgBatch,
                       tick_inc: int = 1) -> tuple[ReplicaState, Outbox, ExecResult]:
     """Advance every replica of the batch by one message batch each
@@ -325,9 +343,6 @@ def replica_step_impl(cfg: MinPaxosConfig, state: ReplicaState, inbox: MsgBatch,
     # ---- 1c. PREPARE_INST_REPLY (value adoption + pvotes) ----
     is_pir = k == int(MsgKind.PREPARE_INST_REPLY)
     me_bit = torch.bitwise_left_shift(torch.ones_like(st.me), st.me)
-    src_bit = torch.bitwise_left_shift(torch.ones_like(inbox.src),
-                                       inbox.src.clamp(0, R - 1))
-    rows_m = torch.arange(M, dtype=I32, device=dev).expand(B, M)
     rel_i, in_win_i = _rel(st.window_base, inbox.inst, S)
     rel_i_safe = rel_i.clamp(max=S - 1)
 
@@ -359,25 +374,10 @@ def replica_step_impl(cfg: MinPaxosConfig, state: ReplicaState, inbox: MsgBatch,
     acc_ok = acc_pre & (inbox.ballot == take(ab_max, rel_i_safe))
 
     # ---- fused slot write A (PIR + ACCEPT), key = section * M + row ----
-    okA = pir_win | acc_ok
-    keyA = scatter_max(S, rel_i, where(acc_ok, M + rows_m, rows_m), okA, -1)[:, :S]
-    hitA = keyA >= 0
-    secA_acc = keyA >= M
-    rowA = torch.remainder(keyA, M)
-
-    def atA(a):
-        return take(a, rowA)
-
-    st.ballot = where(hitA, atA(inbox.ballot), st.ballot)
-    st.status = where(hitA, ACCEPTED, st.status)
-    st.op = where(hitA, atA(inbox.op).to(U8), st.op)
-    st.key_hi = where(hitA, atA(inbox.key_hi), st.key_hi)
-    st.key_lo = where(hitA, atA(inbox.key_lo), st.key_lo)
-    st.val_hi = where(hitA, atA(inbox.val_hi), st.val_hi)
-    st.val_lo = where(hitA, atA(inbox.val_lo), st.val_lo)
-    st.cmd_id = where(hitA, atA(inbox.cmd_id), st.cmd_id)
-    st.client_id = where(hitA, atA(inbox.client_id), st.client_id)
-    st.votes = where(hitA, where(secA_acc, atA(src_bit), col(me_bit)), st.votes)
+    # (K10: the keyed winner and all ten columns in one pass; ACCEPT
+    # winners vote with the sender's bit, PIR winners with their own)
+    set_slot_cols(st, slot_write(WRITE_A, S, rel_i, acc_ok, pir_win | acc_ok, inbox,
+                                 slot_cols(st), st.me, n_replicas=R))
     st.default_ballot = torch.maximum(st.default_ballot, acc_max_ballot)
     st.max_recv_ballot = torch.maximum(st.max_recv_ballot, acc_max_ballot)
     st.crt_inst = torch.maximum(
@@ -473,25 +473,11 @@ def replica_step_impl(cfg: MinPaxosConfig, state: ReplicaState, inbox: MsgBatch,
     fits = prop & (rel_p >= 0) & (rel_p < S)
 
     # ---- fused slot write B (COMMIT + PROPOSE) ----
-    okB = com_ok | fits
-    keyB = scatter_max(S, where(fits, rel_p, rel_i),
-                       where(fits, M + rows_m, rows_m), okB, -1)[:, :S]
-    hitB = keyB >= 0
-    secB_prop = keyB >= M
-    rowB = torch.remainder(keyB, M)
-
-    def atB(a):
-        return take(a, rowB)
-
-    st.ballot = where(hitB, where(secB_prop, col(st.default_ballot),
-                                  atB(inbox.ballot)), st.ballot)
-    st.status = where(hitB, where(secB_prop,
-                                  ACCEPTED,
-                                  st.status.clamp(min=COMMITTED)), st.status)
-    st.op = where(hitB, atB(inbox.op).to(U8), st.op)
-    for f in ("key_hi", "key_lo", "val_hi", "val_lo", "cmd_id", "client_id"):
-        setattr(st, f, where(hitB, atB(getattr(inbox, f)), getattr(st, f)))
-    st.votes = where(hitB & secB_prop, col(me_bit), st.votes)
+    # (K10; a PROPOSE winner takes the serving ballot and votes for
+    # itself, a COMMIT winner never downgrades its status)
+    set_slot_cols(st, slot_write(WRITE_B, S, where(fits, rel_p, rel_i), fits,
+                                 com_ok | fits, inbox, slot_cols(st), st.me,
+                                 st.default_ballot, n_replicas=R))
     st.crt_inst = st.crt_inst + fits.sum(1, dtype=I32)
     reject = is_propose & ~fits
     out.kind = where(fits, int(MsgKind.ACCEPT),

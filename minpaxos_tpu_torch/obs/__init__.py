@@ -1,1 +1,2 @@
-"""Metrics of the serving path (``metrics.MetricsRegistry``)."""
+"""Metrics of the serving path (``metrics.MetricsRegistry``) and the
+resident loop's telemetry-row layout (``recorder``)."""

@@ -3,12 +3,18 @@
 The port of the JAX package's ``parallel/sharded.py``. On one card the
 shard axis is simply part of the batch axis (B = G * R, group major), so
 there is no mesh: every function here is the cluster round over all
-groups at once. ``sharded_run_resident`` is the measured loop: k rounds
-per dispatch with the workload made on the card (ops/workload.py), the
-per-slot inject ring and the latency histogram kept on the card, and
-nothing read back but two scalars per dispatch. The telemetry ring of
-the JAX loop is not ported (its off switch, a zero-row buffer, is the
-only form here).
+groups at once.
+
+* ``sharded_run_resident`` is the measured loop: k rounds per dispatch
+  with the workload made on the card (K8, ops/workload.py), the per-slot
+  inject ring, the latency histogram and the paxray telemetry ring kept
+  on the card (K9, ops/resident.py), optional zero-width drain
+  sub-steps, and nothing read back but two scalars per dispatch.
+* ``sharded_run`` is the host-in-the-loop form: k rounds that return
+  the cursor replica's [k, G] (committed_upto, crt_inst) histories.
+
+The loops update the ring, histogram and telemetry buffers in place
+(the JAX loop donates them).
 """
 
 from __future__ import annotations
@@ -25,16 +31,15 @@ from minpaxos_tpu_torch.models.cluster import (
 from minpaxos_tpu_torch.models.mencius import init_mencius, mencius_step_impl
 from minpaxos_tpu_torch.models.minpaxos import (
     MinPaxosConfig,
+    MsgBatch,
     become_leader,
     init_replica,
     replica_step_impl,
 )
+from minpaxos_tpu_torch.obs.recorder import N_TEL_FIELDS, telemetry_valid_rows
+from minpaxos_tpu_torch.ops.resident import new_scratch, round_close, round_open
 from minpaxos_tpu_torch.ops.util import I32, argmin_first
-from minpaxos_tpu_torch.ops.workload import (
-    assemble_batch,
-    propose_batch,
-    workload_lanes,
-)
+from minpaxos_tpu_torch.ops.workload import propose_batch
 
 #: round-latency histogram bins: exact integer latencies 1..511, last
 #: bin = overflow
@@ -89,55 +94,96 @@ def shard_cursors(cfg: MinPaxosConfig, leader: int, ss: ClusterState):
             ss.states.crt_inst.view(shape)[:, leader])
 
 
+def sharded_step(cfg: MinPaxosConfig, ss: ClusterState, ext: MsgBatch,
+                 step_impl=replica_step_impl):
+    """One synchronous round for every group: (ss', exec results, client
+    rows, client mask)."""
+    return cluster_step_impl(cfg, ss, ext, step_impl)
+
+
+def make_propose_ext(cfg: MinPaxosConfig, n_shards: int, ext_rows: int, count: int,
+                     leader: int, round_idx: int, seed: int = 0,
+                     key_space: int = 1 << 20, device=None) -> MsgBatch:
+    """The round's device-made workload: ``count`` PUT rows per group,
+    addressed to ``leader`` (every replica when < 0)."""
+    return propose_batch(cfg.n_replicas, n_shards, ext_rows, count, leader,
+                         round_idx, seed, key_space, device=device)
+
+
+def _drain_ext(ext: MsgBatch) -> MsgBatch:
+    """The drain sub-steps' ext batch: zero-WIDTH, not zero-filled, so
+    the step runs at the inbox capacity alone."""
+    return MsgBatch(*[x[:, :0] for x in ext])
+
+
+def sharded_run(cfg: MinPaxosConfig, n_shards: int, ext_rows: int, k_rounds: int,
+                ss: ClusterState, n_proposals: int, leader: int, round0: int,
+                seed: int = 0, step_impl=replica_step_impl,
+                key_space: int = 1 << 20, substeps: int = 1):
+    """k protocol rounds, each the round's step plus ``substeps`` - 1
+    drain sub-steps; returns (ss', uptos [k, G], crts [k, G]), the
+    cursor replica's committed_upto and crt_inst after every round."""
+    r = cfg.n_replicas
+    dev = ss.alive.device
+    cursor_rep = max(leader, 0)
+    uptos, crts = [], []
+    for t in range(k_rounds):
+        ext = propose_batch(r, n_shards, ext_rows, n_proposals, leader, round0 + t,
+                            seed, key_space, device=dev)
+        ss, _, _, _ = cluster_step_impl(cfg, ss, ext, step_impl)
+        for _ in range(substeps - 1):
+            ss, _, _, _ = cluster_step_impl(cfg, ss, _drain_ext(ext), step_impl)
+        uptos.append(ss.states.committed_upto.view(n_shards, r)[:, cursor_rep])
+        crts.append(ss.states.crt_inst.view(n_shards, r)[:, cursor_rep])
+    return ss, torch.stack(uptos), torch.stack(crts)
+
+
 def sharded_run_resident(cfg: MinPaxosConfig, n_shards: int, ext_rows: int,
                          k_rounds: int, ss: ClusterState, inject_round: torch.Tensor,
-                         lat_hist: torch.Tensor, n_proposals: int, leader: int,
-                         round0: int, seed: int = 0, key_space: int = 1 << 20,
-                         step_impl=replica_step_impl):
+                         lat_hist: torch.Tensor, telemetry: torch.Tensor,
+                         n_proposals: int, leader: int, round0: int, seed: int = 0,
+                         step_impl=replica_step_impl, key_space: int = 1 << 20,
+                         substeps: int = 1, tel_base: int = 0):
     """k rounds with nothing read back: returns (ss', inject_round',
-    lat_hist', committed_total, in_flight), the last two 0-d tensors.
-    ``step_impl`` is the replica step (Mencius: mencius_step_impl, with
-    ``leader`` -1 so every owner gets the round's proposals; the
-    cursors are then read at replica 0).
+    lat_hist', telemetry', committed_total, in_flight), the last two 0-d
+    tensors. ``step_impl`` is the replica step (Mencius:
+    mencius_step_impl, with ``leader`` -1 so every owner gets the
+    round's proposals; the cursors are then read at replica 0).
 
     ``inject_round`` [G, W]: for each in-flight slot (ring position
     slot % W), the round it was assigned (-1 = before the measured
     window, excluded from the sample). ``lat_hist`` [bins]: committed
     slots per exact integer round latency (same round = 1), last bin =
-    overflow. Both are updated in place and returned."""
-    w = cfg.window
+    overflow. ``telemetry`` [rows, N_TEL_FIELDS]: one row per round
+    (obs/recorder.py layout) at ``(round - tel_base) mod rows``; a
+    zero-row buffer switches the telemetry off, and its reads and
+    writes are then skipped. ``substeps`` - 1 zero-width drain
+    sub-steps follow each round's step. The three buffers are updated
+    in place."""
     r = cfg.n_replicas
     dev = inject_round.device
     cursor_rep = max(leader, 0)
-    pos = torch.arange(w, dtype=I32, device=dev)[None, :]
-    ts = torch.arange(k_rounds, dtype=torch.int64, device=dev)
-    keys, vals = workload_lanes(n_shards, ext_rows, round0 + ts, seed,
-                                key_space, device=dev)
-    inj, hist = inject_round, lat_hist
-    nb = hist.shape[0]
+    tel_on = telemetry.shape[0] > 0
+    scratch = new_scratch(n_shards, dev)  # K9's cursor snapshot + row terms
+    injected = n_shards * n_proposals * (1 if leader >= 0 else r)
     for t in range(k_rounds):
         rnd = round0 + t
-        upto = ss.states.committed_upto.view(n_shards, r)
-        crt = ss.states.crt_inst.view(n_shards, r)
-        u_prev = upto[:, cursor_rep].clone()
-        c_prev = crt[:, cursor_rep].clone()
-        ext = assemble_batch(r, n_shards, ext_rows, n_proposals, leader, rnd,
-                             keys[t], vals[t])
+        round_open(scratch, ss.states, ss.pending.kind, cursor_rep, n_shards,
+                   n_proposals, leader, True, tel_on)
+        ext = propose_batch(r, n_shards, ext_rows, n_proposals, leader, rnd, seed,
+                            key_space, device=dev)
         ss, _, _, _ = cluster_step_impl(cfg, ss, ext, step_impl)
-        u_new = ss.states.committed_upto.view(n_shards, r)[:, cursor_rep]
-        c_new = ss.states.crt_inst.view(n_shards, r)[:, cursor_rep]
-        cp = c_prev[:, None]
-        slot = cp + torch.remainder(pos - cp, w)
-        inj = torch.where(slot < c_new[:, None], rnd, inj)
-        up = u_prev[:, None] + 1
-        cslot = up + torch.remainder(pos - up, w)
-        sampled = (cslot <= u_new[:, None]) & (inj >= 0)
-        bins = (rnd - inj).clamp(0, nb - 1)
-        hist.scatter_add_(0, bins.reshape(-1).long(), sampled.reshape(-1).to(hist.dtype))
-    inject_round.copy_(inj)
+        for _ in range(substeps - 1):
+            if tel_on:  # drain deliveries count into inbox_rows / inbox_hwm
+                round_open(scratch, ss.states, ss.pending.kind, cursor_rep,
+                           n_shards, 0, leader, False, True)
+            ss, _, _, _ = cluster_step_impl(cfg, ss, _drain_ext(ext), step_impl)
+        round_close(scratch, inject_round, lat_hist, telemetry, ss.states,
+                    cursor_rep, rnd, tel_base, injected)
     upto = ss.states.committed_upto.view(n_shards, r)[:, cursor_rep]
     crt = ss.states.crt_inst.view(n_shards, r)[:, cursor_rep]
-    return ss, inject_round, hist, (upto + 1).sum(), (crt - 1 - upto).sum()
+    return (ss, inject_round, lat_hist, telemetry, (upto + 1).sum(),
+            (crt - 1 - upto).sum())
 
 
 class ShardedCluster:
@@ -166,6 +212,8 @@ class ShardedCluster:
         self._seed = 0  # round counter: the workload stream's position
         self._inject_round = None
         self._lat_hist = None
+        self._telemetry = None
+        self._tel_base = 0
 
     def elect(self, leader: int = 0) -> None:
         if self.protocol == "mencius":
@@ -176,39 +224,72 @@ class ShardedCluster:
         self.step(0)  # deliver replies -> leader prepared
 
     def step(self, n_proposals: int) -> None:
-        ext = propose_batch(self.cfg.n_replicas, self.n_shards, self.ext_rows,
-                            min(n_proposals, self.ext_rows), self.leader,
-                            self._seed, self.seed, self.key_space, self.device)
+        ext = make_propose_ext(self.cfg, self.n_shards, self.ext_rows,
+                               min(n_proposals, self.ext_rows), self.leader,
+                               self._seed, self.seed, self.key_space, self.device)
         self._seed += 1
-        self.ss, _, _, _ = cluster_step_impl(self.cfg, self.ss, ext, self._step_impl)
+        self.ss, _, _, _ = sharded_step(self.cfg, self.ss, ext, self._step_impl)
 
     def committed(self) -> tuple[int, int, int]:
         tot, lo, hi = commit_totals(self.cfg, self.ss)
         return int(tot), int(lo), int(hi)
 
-    def begin_resident(self, lat_bins: int = LATENCY_BINS) -> None:
-        """Arm the resident loop's bookkeeping: a fresh inject ring (all
-        -1) and a zeroed latency histogram."""
-        self._inject_round = torch.full((self.n_shards, self.cfg.window), -1,
-                                        dtype=I32, device=self.device)
-        self._lat_hist = torch.zeros(lat_bins, dtype=I32, device=self.device)
+    def run_fused(self, k_rounds: int, n_proposals: int, substeps: int = 1):
+        """k rounds with the host in the loop: returns the cursor
+        replica's per-round histories (numpy [k, G] committed_upto and
+        crt_inst), read back after the k rounds."""
+        self.ss, uptos, crts = sharded_run(
+            self.cfg, self.n_shards, self.ext_rows, k_rounds, self.ss,
+            min(n_proposals, self.ext_rows), self.leader, self._seed, self.seed,
+            self._step_impl, self.key_space, substeps)
+        self._seed += k_rounds
+        return uptos.cpu().numpy(), crts.cpu().numpy()
 
-    def run_resident(self, k_rounds: int, n_proposals: int) -> tuple[int, int]:
+    def begin_resident(self, lat_bins: int = LATENCY_BINS,
+                       telemetry_rounds: int = 0) -> None:
+        """Arm the resident loop's bookkeeping: a fresh inject ring (all
+        -1), a zeroed latency histogram and, when ``telemetry_rounds`` >
+        0, the telemetry ring (round column -1 = never written; 0 rows
+        switch it off). Ring rows count from the round counter at
+        arming, so a re-armed ring restarts at row 0."""
+        dev = self.device
+        self._inject_round = torch.full((self.n_shards, self.cfg.window), -1,
+                                        dtype=I32, device=dev)
+        self._lat_hist = torch.zeros(lat_bins, dtype=I32, device=dev)
+        self._telemetry = torch.full((telemetry_rounds, N_TEL_FIELDS), -1,
+                                     dtype=I32, device=dev)
+        self._tel_base = self._seed
+
+    def run_resident(self, k_rounds: int, n_proposals: int,
+                     substeps: int = 1) -> tuple[int, int]:
         """k rounds, fully on the card; returns (committed_total,
         in_flight) — the only per-dispatch readback."""
-        (self.ss, self._inject_round, self._lat_hist, committed,
+        (self.ss, self._inject_round, self._lat_hist, self._telemetry, committed,
          in_flight) = sharded_run_resident(
             self.cfg, self.n_shards, self.ext_rows, k_rounds, self.ss,
-            self._inject_round, self._lat_hist, min(n_proposals, self.ext_rows),
-            self.leader, self._seed, self.seed, self.key_space, self._step_impl)
+            self._inject_round, self._lat_hist, self._telemetry,
+            min(n_proposals, self.ext_rows), self.leader, self._seed, self.seed,
+            self._step_impl, self.key_space, substeps, self._tel_base)
         self._seed += k_rounds
         return int(committed), int(in_flight)
 
+    def resident_hist(self) -> np.ndarray:
+        """The latency histogram, without disarming (a post-window read)."""
+        return self._lat_hist.cpu().numpy()
+
+    def resident_telemetry(self) -> np.ndarray:
+        """The telemetry ring's written rows sorted by round ([n,
+        N_TEL_FIELDS] numpy, obs/recorder.py layout). A post-window
+        read: call it before ``end_resident``, which disarms the ring."""
+        return telemetry_valid_rows(self._telemetry.cpu().numpy())
+
     def end_resident(self) -> np.ndarray:
-        """The post-window readback: the latency histogram; disarms."""
+        """The post-window readback: the latency histogram; disarms the
+        bookkeeping, the telemetry ring included."""
         hist = self._lat_hist.cpu().numpy()
         self._inject_round = None
         self._lat_hist = None
+        self._telemetry = None
         return hist
 
     def kill(self, replica: int) -> None:

@@ -315,3 +315,155 @@ def test_golden_digests_on_the_card(dev):
     gold = load_fixture()
     for proto in PROTOCOLS:
         assert first_divergence(drive(proto, device=dev), gold[proto]) is None
+
+
+@pytest.mark.parametrize("hot_pct", [0, 30])
+def test_propose_rows_kernel(dev, hot_pct):
+    """K8 against its plain twin and the numpy twin: both leader forms,
+    rounds 0, 1 and one where cmd_id wraps in int32."""
+    from minpaxos_tpu_torch.ops import workload as wl
+
+    g, r, m = 7, 5, 300
+    n0 = wl._propose_rows_kernel.launches
+    for leader, count in ((0, 211), (-1, 64)):
+        for rnd in (0, 1, 2 ** 31 // m + 5):
+            got = wl.propose_batch(r, g, m, count, leader, rnd, 9, 1 << 14,
+                                   hot_pct=hot_pct, device=dev)
+            want = wl.propose_batch(r, g, m, count, leader, rnd, 9, 1 << 14,
+                                    hot_pct=hot_pct, device="cpu")
+            host = wl.propose_batch_host(r, g, m, count, leader, rnd, 9, 1 << 14,
+                                         hot_pct=hot_pct)
+            for a, b, c in zip(got, want, host):
+                assert torch.equal(a.cpu(), b)
+                assert (a.cpu().numpy() == c).all()
+    assert wl._propose_rows_kernel.launches == n0 + 6
+
+
+@pytest.mark.parametrize("tel_rows", [0, 5])
+def test_round_kernels_at_edge_cursors(dev, tel_rows):
+    """K9 against its plain twin where a group assigns or commits nothing,
+    fewer than, exactly or more than a ring's worth of slots in a round,
+    or its cursors go backwards, with the telemetry ring off and wrapping."""
+    from types import SimpleNamespace as NS
+
+    from minpaxos_tpu_torch.ops import resident
+
+    gr, r, w, bins, rnd = 14, 3, 64, 9, 70
+    g = _gen(dev, 5)
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, device=dev, dtype=torch.int32, generator=g)
+
+    steps = torch.tensor([-2, 0, 1, 17, 63, 64, 65, 200, 3, 0, 64, 1, 130, 7],
+                         dtype=torch.int32, device=dev)
+    u0 = ri(0, 500, (gr * r,))
+    pre = NS(committed_upto=u0, crt_inst=u0 + 1 + ri(0, 90, (gr * r,)),
+             executed_upto=u0 - ri(0, 9, (gr * r,)))
+    post = NS(committed_upto=u0 + steps.flip(0).repeat_interleave(r),
+              crt_inst=pre.crt_inst + steps.repeat_interleave(r),
+              executed_upto=pre.executed_upto + ri(0, 30, (gr * r,)),
+              prepared=torch.rand((gr * r,), device=dev, generator=g) < 0.5)
+    kind = torch.where(torch.rand((gr * r, 40), device=dev, generator=g) < 0.4,
+                       ri(1, 12, (gr * r, 40)), 0)
+    bufs = (resident.new_scratch(gr, dev),
+            torch.where(torch.rand((gr, w), device=dev, generator=g) < 0.8,
+                        ri(0, rnd, (gr, w)), -1),
+            ri(0, 20, (bins,)), torch.full((tel_rows, 9), -1, dtype=torch.int32, device=dev))
+    out = []
+    for fo, fc in ((resident.round_open, resident.round_close),
+                   (resident._round_open_plain, resident._round_close_plain)):
+        scr, inj, hist, tel = (t.clone() for t in bufs)
+        fo(scr, pre, kind, 1, gr, 11, 1, True, tel_rows > 0)
+        fc(scr, inj, hist, tel, post, 1, rnd, 3, gr * 11)
+        out.append((scr, inj, hist, tel))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    assert (out[0][1] == rnd).any() and not torch.equal(out[0][2], bufs[2])
+
+
+def _slot_inputs(dev, seed, b=12, m=300, s=4100):
+    g = _gen(dev, seed)
+    from minpaxos_tpu_torch.models.minpaxos import MsgBatch
+    from minpaxos_tpu_torch.ops import winner
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, device=dev, dtype=torch.int32, generator=g)
+
+    hot = ri(0, s, (b, 4))
+    tgt = torch.where(torch.rand((b, m), device=dev, generator=g) < 0.5,
+                      torch.gather(hot, 1, ri(0, 4, (b, m)).long()), ri(-3, s + 4, (b, m)))
+    inbox = MsgBatch(*[ri(-2, 300, (b, m)) for _ in range(12)])
+    old = [ri(-1, 1 << 20, (b, s)) for _ in winner.SLOT_COLS]
+    old[1] = ri(0, 6, (b, s)).to(torch.uint8)
+    old[2] = ri(0, 4, (b, s)).to(torch.uint8)
+    return (tgt, torch.rand((b, m), device=dev, generator=g) < 0.5,
+            torch.rand((b, m), device=dev, generator=g) < 0.7, inbox, tuple(old),
+            ri(0, 5, (b,)), ri(0, 99, (b,)))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_slot_write_kernels(dev, seed):
+    """K10 against its plain twins: both slot_write modes, every
+    gather_rows form, and old columns read through a narrowed
+    (strided) view of a wider window."""
+    from minpaxos_tpu_torch.ops import winner
+
+    tgt, sec, ok, inbox, old, me, cb = _slot_inputs(dev, seed)
+    s = old[0].shape[1]
+    for modes, cball in ((winner.WRITE_A, None), (winner.WRITE_B, cb)):
+        got = winner.slot_write(modes, s, tgt, sec, ok, inbox, old, me, cball, n_replicas=5)
+        want = winner._slot_write_plain(modes, s, tgt, sec, ok, inbox, old, me, cball, 5)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    wide = tuple(torch.cat([o, o[:, :64]], 1) for o in old)
+    view = tuple(o.narrow(1, 32, s) for o in wide)
+    got = winner.slot_write(winner.WRITE_B, s, tgt, sec, ok, inbox, view, me, cb, n_replicas=5)
+    want = winner._slot_write_plain(winner.WRITE_B, s, tgt, sec, ok, inbox, view, me, cb, 5)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    win, hit = winner.slot_winner(s, torch.where(ok, tgt, s), ok)
+    for mode in (winner.SlotMode(winner.BAL_ROW, winner.ST_ACCEPTED, winner.V_KEEP),
+                 winner.SlotMode(winner.BAL_ROW, winner.ST_COMMIT, winner.V_KEEP),
+                 winner.SlotMode(winner.BAL_ROW, winner.ST_ACCEPTED, winner.V_ME),
+                 winner.SlotMode(winner.BAL_CONST, winner.ST_ACCEPTED, winner.V_ME)):
+        got = winner.gather_rows(mode, win, hit, inbox, old, me, n_replicas=5)
+        want = winner._gather_rows_plain(mode, win, hit, inbox, old, me, None, 5)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert winner._slot_write_kernel.launches > 0
+    assert winner._gather_rows_kernel.launches > 0
+
+
+@pytest.mark.parametrize("protocol,substeps", [("minpaxos", 1), ("minpaxos", 2),
+                                               ("mencius", 2)])
+def test_resident_loop_on_the_card(dev, protocol, substeps):
+    """The resident loop with the telemetry ring armed (K8, K9 and K10
+    on the path) equals the CPU run's plain twins: per-dispatch scalars,
+    telemetry rows, inject ring, histogram and state."""
+    from minpaxos_tpu_torch import kernels as K
+    from minpaxos_tpu_torch.models.cluster import numpy_leaves
+    from minpaxos_tpu_torch.models.minpaxos import MinPaxosConfig
+    from minpaxos_tpu_torch.parallel.sharded import ShardedCluster
+
+    cfg = MinPaxosConfig(n_replicas=5, window=256, inbox=128, exec_batch=40,
+                         kv_pow2=10, catchup_rows=8, recovery_rows=8)
+    out = []
+    for d in (dev, "cpu"):
+        sc = ShardedCluster(cfg, 3, ext_rows=16, key_space=256, seed=7, device=d,
+                            protocol=protocol)
+        if protocol == "minpaxos":
+            sc.elect(0)
+        sc.begin_resident(telemetry_rounds=20)
+        K.reset_launches()
+        res = [sc.run_resident(8, 6 if protocol == "mencius" else 12, substeps)
+               for _ in range(3)]
+        res += [sc.run_resident(8, 0, substeps) for _ in range(2)]
+        launches = K.launch_counts()
+        tel = sc.resident_telemetry()
+        inj = sc._inject_round.cpu().numpy()
+        out.append((res, tel, inj, sc.end_resident(), numpy_leaves(sc.ss), launches))
+    (a, b) = out
+    assert a[0] == b[0] and a[0][-1][1] == 0
+    for x, y in zip(a[1:4], b[1:4]):
+        assert (x == y).all()
+    assert len(a[4]) == len(b[4]) and all((x == y).all() for x, y in zip(a[4], b[4]))
+    for name in ("propose_rows", "round_open", "round_close",
+                 "slot_write" if protocol == "minpaxos" else "gather_rows"):
+        assert a[5][name] > 0, name

@@ -7,6 +7,7 @@ import os
 import pkgutil
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -196,3 +197,44 @@ def test_pack_outputs_never_falls_back_for_non_cpu_tensors():
                                                           device="meta"))
     with pytest.raises(RuntimeError, match="CUDA tensor"):
         substeps._pack_kernel(st, ob, ex, row, st.window_base)
+
+
+def test_loop_kernels_never_fall_back():
+    """K8, K9 and K10: a device other than the CPU takes the kernel or
+    raises; every kernel source is listed and present."""
+    from minpaxos_tpu_torch import kernels as K
+    from minpaxos_tpu_torch.models.minpaxos import MsgBatch
+    from minpaxos_tpu_torch.ops import resident, winner, workload
+
+    assert all((K.CSRC / f"{n}.cu").exists() for n in K.SOURCES)
+    assert {"workload", "resident", "slotwrite"} <= set(K.SOURCES)
+    for name in ("propose_rows", "round_open", "round_close", "slot_write", "gather_rows"):
+        assert name in K.launch_counts()
+    with pytest.raises(RuntimeError):
+        workload.propose_batch(5, 2, 8, 4, 0, 1, 0, 64, device="meta")
+    st = SimpleNamespace(**{f: torch.zeros(10, dtype=torch.int32)
+                            for f in ("committed_upto", "crt_inst", "executed_upto")})
+    with pytest.raises(RuntimeError):
+        resident.round_open(resident.new_scratch(2, "cpu"), st,
+                            torch.zeros((10, 4), dtype=torch.int32, device="meta"),
+                            0, 2, 4, 0, True, True)
+    with pytest.raises(RuntimeError):
+        resident.round_close(resident.new_scratch(2, "cpu"),
+                             torch.zeros((2, 8), dtype=torch.int32, device="meta"),
+                             torch.zeros(4, dtype=torch.int32),
+                             torch.zeros((0, 9), dtype=torch.int32), st, 0, 1, 0, 0)
+    inbox = MsgBatch.empty(2, 4, "cpu")
+    old = tuple(torch.zeros((2, 8), dtype=torch.uint8 if f in ("status", "op")
+                            else torch.int32) for f in winner.SLOT_COLS)
+    me = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(RuntimeError):
+        winner.slot_write(winner.WRITE_A, 8, torch.zeros((2, 4), dtype=torch.int32,
+                                                         device="meta"),
+                          torch.zeros((2, 4), dtype=torch.bool),
+                          torch.zeros((2, 4), dtype=torch.bool), inbox, old, me,
+                          n_replicas=5)
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        winner._slot_write_kernel(winner.WRITE_A, 8, torch.zeros((2, 4), dtype=torch.int32),
+                                  torch.zeros((2, 4), dtype=torch.bool),
+                                  torch.zeros((2, 4), dtype=torch.bool), inbox, old, me,
+                                  None, 5)
