@@ -13,8 +13,12 @@ Phases, each printing one JSON line:
               table, K7 on the leader's outputs of a live exchange), on
               seeded inputs; integer results, compared for equality.
               Besides: K7 at a batch of 1,280 replicas, K4 insert on
-              2^18-way tables 90% full, K5 vote bits with five replicas
-              and K6 at the server's default window of 16,384 slots. K8
+              2^18-way tables 90% full, K4 insert at each path's shapes
+              on keys that share their first candidate bucket in groups
+              of 2, 4 and 6 (the phase fails if no block contended, or
+              no bucket overflowed into pass B), K5 vote bits with five
+              replicas and K6 at the server's default window of 16,384
+              slots. K8
               (the round's PROPOSE rows: a round where cmd_id wraps, a
               hot-key batch, the numpy twin too), K9 (round_open /
               round_close, ring armed and off, a drain sub-step) and K10
@@ -262,6 +266,62 @@ def max_abs_err(a, b) -> float:
 
 # ---------------------------------------------------------------- phase 2
 
+def claim_contention(kv, k_hi, k_lo, delete, valid) -> dict:
+    """How much the claim logic of an insert has to resolve: the rows to
+    place whose pass-A bucket (the emptier candidate) another such row
+    of the same table shares, and the pass-A buckets with more
+    contenders than free ways, whose overflow goes to pass B."""
+    from minpaxos_tpu_torch.ops import kvstore as kvs
+
+    b, c = kv.slot.shape
+    pos = kvs._cand_pos(c, k_hi, k_lo)
+    s, th, tl = kvs._probe(kv, pos)
+    match = ((s == kvs.LIVE) & (th == k_hi[..., None]) & (tl == k_lo[..., None])).any(-1)
+    f1 = (s[..., :kvs.WAYS] == kvs.EMPTY).sum(-1)
+    f2 = (s[..., kvs.WAYS:] == kvs.EMPTY).sum(-1)
+    bkt = torch.where(f2 > f1, pos[..., kvs.WAYS], pos[..., 0]) // kvs.WAYS
+    place = valid & ~match & ~delete
+    rows = torch.arange(b, device=bkt.device)[:, None]
+    key = torch.where(place, rows * (c // kvs.WAYS) + bkt, -1)
+    u, inv, cnt = torch.unique(key, return_inverse=True, return_counts=True)
+    nfree = torch.zeros_like(cnt).scatter_(0, inv.flatten(), torch.maximum(f1, f2).flatten())
+    return dict(contended_rows=int((place & (cnt[inv] >= 2)).sum().item()),
+                oversubscribed_buckets=int(((u >= 0) & (cnt > nfree)).sum().item()))
+
+
+def insert_bytes(kv, after, k_hi, k_lo, delete, valid) -> int:
+    """The bytes K4 insert must move for these rows into ``kv``, counted
+    from the data (``after``: the plain twin's result): every row's valid
+    flag; a valid row's key and delete flag, both candidate buckets of
+    slot, key_lo of each candidate bucket holding a LIVE way and key_hi
+    of each whose key_lo matched; a matched row's value read and written
+    (and its slot on a delete); a placed row's value read and its whole
+    entry written; a displaced resident's key and value read and its
+    entry written again; the drop count of a table that lost a row."""
+    from minpaxos_tpu_torch.ops import kvstore as kvs
+
+    b, c = kv.slot.shape
+    lanes = kv.val.shape[-1]
+    s, th, tl = kvs._probe(kv, kvs._cand_pos(c, k_hi, k_lo))
+    live = (s == kvs.LIVE) & valid[..., None]
+    lo_eq = live & (tl == k_lo[..., None])
+    match = (lo_eq & (th == k_hi[..., None])).any(-1)
+
+    def buckets(m):
+        return int(m.view(*m.shape[:-1], 2, kvs.WAYS).any(-1).sum().item())
+
+    lost = after.dropped - kv.dropped
+    placed = int((valid & ~match & ~delete).sum().item()) - int(lost.sum().item())
+    moved = int(((kv.slot == kvs.LIVE) & (after.slot == kvs.LIVE)
+                 & (kv.key_lo != after.key_lo)).sum().item())
+    entry = 3 * 4 + 4 * lanes  # key_hi, key_lo, slot, value
+    return (k_hi.numel() + int(valid.sum().item()) * (4 + 4 + 1 + 2 * kvs.WAYS * 4)
+            + 16 * buckets(live) + 16 * buckets(lo_eq)
+            + int(match.sum().item()) * 8 * lanes + int((match & delete).sum().item()) * 4
+            + placed * (4 * lanes + entry) + moved * (8 + 4 * lanes + entry)
+            + 8 * int((lost > 0).sum().item()))
+
+
 def compare_kernels(dev, seed: int, sh: Shapes) -> tuple[dict, float]:
     """Each kernel of the path vs its plain twin at the path's shapes;
     also the whole KV apply (sort + K3 + K4) on the card against the CPU
@@ -313,8 +373,10 @@ def compare_kernels(dev, seed: int, sh: Shapes) -> tuple[dict, float]:
         ok2 = rb(p_ok, (B, M))
         err = max(err, max_abs_err(winner.scatter_max(size, t2, v2, ok2, fill),
                                    winner._scatter_max_plain(size, t2, v2, ok2, fill)))
+    # the narrow form's device ms (kept beside the window form's row)
+    narrow_ms = graph_ms(lambda: winner.scatter_max(size, t2, v2, ok2, fill))
     res["scatter_max"] = dict(
-        err=err, **times(fn_k, fn_p, fn_lib),
+        err=err, **times(fn_k, fn_p, fn_lib), narrow_ms=narrow_ms,
         bytes=B * M * (4 + 4 + 1) + B * (S + 1) * 4,
         ops=B * M * 4 + B * (S + 1),  # select, bound check, address, max; fill
         shapes=f"tgt/val/ok [{B},{M}] -> [{B},{S + 1}]; also signed ballots "
@@ -413,6 +475,7 @@ def compare_kernels(dev, seed: int, sh: Shapes) -> tuple[dict, float]:
     kv_a = kvs.kv_insert_unique(clone_kv(), ins_hi, ins_lo, ins_v, ins_del, ins_ok)
     kv_b = kvs._kv_insert_plain(kv, ins_hi, ins_lo, ins_v, ins_del, ins_ok)
     err = max(max_abs_err(a, b) for a, b in zip(kv_a, kv_b))
+    ins_bytes = insert_bytes(kv, kv_b, ins_hi, ins_lo, ins_del, ins_ok)
     # and on tables three-quarters full, where rows overflow both
     # candidate buckets and the displacement pass runs
     full = prefill(clone_kv(), range(16, 48))
@@ -427,6 +490,19 @@ def compare_kernels(dev, seed: int, sh: Shapes) -> tuple[dict, float]:
                      displaced=displaced,
                      dropped=int((kv_a.dropped - pre.dropped).sum().item()))
     del full, pre, kv_a, kv_b
+    # and keys that share their first candidate bucket in groups of 2, 4
+    # and 6, rows shuffled per table: the claim rounds after the first
+    # and pass B run in every block
+    c_lo = kvs._grouped_keys(C, E, g)
+    c_lo = c_lo[torch.argsort(torch.rand((B, E), device=dev, generator=g), 1)]
+    c_del, c_ok = rb(0.05, (B, E)), rb(0.95, (B, E))
+    c_args = (torch.zeros_like(c_lo), c_lo, ri(0, 1 << 30, (B, E, 2)), c_del, c_ok)
+    contended = claim_contention(kv, c_args[0], c_lo, c_del, c_ok)
+    kv_a = kvs.kv_insert_unique(clone_kv(), *c_args)
+    kv_b = kvs._kv_insert_plain(kv, *c_args)
+    contended["err"] = max(max_abs_err(a, b) for a, b in zip(kv_a, kv_b))
+    err = max(err, contended["err"])
+    del kv_a, kv_b
     pool = [clone_kv() for _ in range(8)]
     it = iter(range(10 ** 9))
 
@@ -438,10 +514,13 @@ def compare_kernels(dev, seed: int, sh: Shapes) -> tuple[dict, float]:
     ins_k = lambda: kvs.kv_insert_unique(pool[next(it) % 8], ins_hi, ins_lo, ins_v,  # noqa: E731
                                          ins_del, ins_ok)
     ins_p = lambda: kvs._kv_insert_plain(kv, ins_hi, ins_lo, ins_v, ins_del, ins_ok)  # noqa: E731
+    contended["ms"] = graph_ms(lambda: kvs.kv_insert_unique(pool[next(it) % 8], *c_args),
+                               8, reset=restore)
     n_ok = int(ins_ok.sum().item())
     res["kv_insert"] = dict(
         err=err, **times(ins_k, ins_p, iters=8, reset=restore), full_load=full_load,
-        bytes=B * E * (4 + 4 + 8 + 1 + 1) + n_ok * (8 * 12 + 20) + B * 4,
+        contended=contended,
+        bytes=ins_bytes,
         ops=n_ok * (24 + 8 * 4 + 2 * 4 * 6),  # hashes, probes, claim rounds
         shapes=f"tables [{B},{C}], rows [{B},{E}]")
 
@@ -837,6 +916,7 @@ def dispatch_profile(cfg, state, inbox, n: int = 10) -> dict:
     return dict(dispatch_device_ms=dev_us / 1e3 / n,
                 dispatch_wall_ms_profiled=1e3 * wall / n,
                 dispatch_kernel_launches=sum(e.count for e in events) / n,
+                own_kernels_per_dispatch=own_kernels(events, n),
                 dispatch_inbox_rows=int((inbox.kind != 0).sum().item()))
 
 
@@ -1001,6 +1081,20 @@ REPLACES = {
 
 # ---------------------------------------------------------------- phase 4
 
+def own_kernels(events, n: int) -> dict:
+    """The port's own kernels (names starting mp_) among the profiler's
+    device events: device ms and launches per round (or dispatch) over
+    ``n`` of them, by kernel name without its parameter list."""
+    out = {}
+    for e in events:
+        name = e.key.removeprefix("void ").split("(")[0]
+        if name.startswith("mp_"):
+            ms, k = out.get(name, (0.0, 0))
+            out[name] = (ms + getattr(e, "self_device_time_total", 0) / 1e3 / n,
+                         k + e.count / n)
+    return {k: dict(ms=ms, launches=c) for k, (ms, c) in sorted(out.items())}
+
+
 def profile_rounds(sc, rounds: int, p: int, out_dir: str, tag: str) -> dict:
     """torch.profiler over ``rounds`` steady rounds of the resident loop
     at ``p`` proposals: device time by kernel name and the device busy
@@ -1021,6 +1115,7 @@ def profile_rounds(sc, rounds: int, p: int, out_dir: str, tag: str) -> dict:
     dev_us = {e.key: getattr(e, "self_device_time_total", 0) for e in events}
     total_us = sum(dev_us.values())
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:25]
+    own = own_kernels(events, rounds)
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir, f"{tag}_round_trace.json"))
     with open(os.path.join(out_dir, f"{tag}_round_table.txt"), "w") as f:
@@ -1029,7 +1124,8 @@ def profile_rounds(sc, rounds: int, p: int, out_dir: str, tag: str) -> dict:
                 device_ms_per_round=total_us / 1e3 / rounds,
                 kernel_launches_per_round=sum(e.count for e in events) / rounds,
                 device_busy_share=(total_us / 1e6) / wall if wall else None,
-                top_kernels_ms_per_round={k: v / 1e3 / rounds for k, v in top})
+                top_kernels_ms_per_round={k: v / 1e3 / rounds for k, v in top},
+                own_kernels_per_round=own)
 
 
 def read_back(sc, dev, seed: int, round0: int, rounds: int, p: int, ext: int,
@@ -1704,6 +1800,11 @@ def main() -> None:
     if not res["minpaxos"]["kv_insert"]["full_load"]["displaced"]:
         fail("compare", "the full-load kv_insert compare displaced no row, so "
                         "it did not hold the displacement pass to its twin")
+    for path, r in res.items():
+        c = r["kv_insert"]["contended"]
+        if not (c["contended_rows"] and c["oversubscribed_buckets"]):
+            fail("compare", f"the contended kv_insert compare at the {path} shape "
+                            f"contended nothing: {c}")
     if not extra["kv_insert_2^18_at_0.9_load_displaced"]:
         fail("compare", "the 2^18-way kv_insert compare at 0.9 load displaced no row")
     gold = load_fixture(os.path.join(HERE, "tests", "fixtures", "kernel_golden.json"))

@@ -6,18 +6,36 @@
 // Each key has two candidate buckets of WAYS ways.
 //
 // Bound: bytes. A probe reads its 2 x WAYS candidate entries (12 B
-// each) and, when found, one value; an insert reads the same and writes
-// one entry. The claim rounds are a few hundred integer ops per row.
+// each) and, when found, one value. An insert needs less: both buckets
+// of slot, key_lo of a bucket with a LIVE way and key_hi of a bucket
+// whose key_lo matched; then a placed row writes its whole entry, a
+// matched row only its value (and its slot on a delete), a delete of an
+// absent key nothing. The claim rounds are a few hundred integer ops
+// per row.
 // Design:
 // * lookup: one thread per query row, probing the eight ways in order
 //   (the first live match wins, as argmax does in the JAX engine).
 // * insert: one block per batch row, so every claim contest of that
-//   row's table runs inside the block. Each of the WAYS claim rounds
-//   is a scatter-min of the row index into a claims array (one int
-//   per bucket), then __syncthreads(); the lowest
-//   contending row wins the bucket's r-th free way. Pass A targets the
-//   emptier bucket; pass B retries the other bucket with the ways pass
-//   A claimed masked out (a bit per position). Pass C
+//   row's table runs inside the block; one row per thread up to 1,024
+//   rows (2 or 4 above): a template, so a row's state stays in
+//   registers (with four rows' arrays at every E the probe spilled and
+//   ran slower than the old kernel). Only valid rows probe: each
+//   candidate bucket of slot in one 16-byte load (a bucket is 4 ints;
+//   a table that is not 16-byte aligned is refused), key_lo only for
+//   a bucket with a LIVE way and key_hi only where key_lo matched;
+//   loading all six buckets eagerly reads sectors no row needs. Each of up to WAYS claim rounds is a scatter-min of
+//   the row index into a claims array (one int per bucket), then
+//   __syncthreads(); the lowest contending row wins the bucket's r-th
+//   free way. The rounds stop as soon as no row of the block contends
+//   (__syncthreads_or): a round without contenders changes nothing, so
+//   the placement is the one all WAYS rounds give. The round-r winner
+//   is the row of rank r among its bucket's contenders (every contender
+//   of a bucket holds the same free mask), which is JAX's claim order.
+//   At E = 512 keys in 8,192 buckets a block has ~16 contended pairs,
+//   so rounds 0 and 1 run and rounds 2-3 seldom. Pass A targets the
+//   emptier bucket; pass B, only in a block where some row overflowed
+//   pass A, retries the other bucket with the ways pass A claimed
+//   masked out (a bit per position, cleared and set only then). Pass C
 //   places the rows that fit in neither bucket by displacement, when
 //   there are any (rare): thread 0 takes the first DISPLACE_ROUNDS
 //   failing rows in row order; each moves one resident of its buckets
@@ -25,7 +43,10 @@
 //   of the resident's other bucket and takes its place. The plain twin
 //   runs the same rounds in the same order. All table reads happen
 //   before the first write; the resident moves land before the rows,
-//   and no two writes share a position.
+//   and no two writes share a position. A matched way rewrites only its
+//   value (and its slot on a delete): its key and LIVE are there. The
+//   stores dominate the kernel's time: each placed row dirties a sector
+//   of each of the four tables that no other row shares.
 // * insert scratch: the claims array (C/4 ints) and the taken/pinned
 //   bit arrays (2 x C/32 words) live in the block's shared memory
 //   while they fit in 227 KB (C <= 2^17). Above that (the serving
@@ -41,7 +62,7 @@
 #define WAYS 4
 #define EMPTY 0
 #define LIVE 1
-#define MAX_RPT 4  // rows per thread: E <= 4 * 1024
+#define MAX_RPT 4  // rows per thread at most: E <= 4 * 1024
 #define DISPLACE_ROUNDS 8  // ops/kvstore.py DISPLACE_ROUNDS
 
 __device__ __forceinline__ unsigned mix32(unsigned x) {
@@ -128,39 +149,74 @@ __device__ __forceinline__ int nth_free(int fm, int r) {
   return -1;
 }
 
-// WAYS claim rounds over the block's rows: the round-r winner of a
-// bucket (lowest contending row) takes the bucket's r-th free way;
-// winners leave the contest placed or not. Every thread must call it.
-__device__ __forceinline__ void assign(const bool (&mask)[MAX_RPT],
-                                       const int (&bkt)[MAX_RPT],
-                                       const int (&fm)[MAX_RPT],
-                                       int (&dest)[MAX_RPT], int* claims) {
-  bool rem[MAX_RPT];
+// Up to WAYS claim rounds over the block's rows: the round-r winner of
+// a bucket (lowest contending row) takes the bucket's r-th free way;
+// winners leave the contest placed or not. The rounds stop once no row
+// of the block contends: a round without contenders changes nothing.
+// Every thread must call it; the caller puts a barrier between the
+// last round's claim reads and the next writes to ``claims``.
+template <int RPT>
+__device__ __forceinline__ void assign(const bool (&mask)[RPT],
+                                       const int (&bkt)[RPT],
+                                       const int (&fm)[RPT],
+                                       int (&dest)[RPT], int* claims) {
+  bool rem[RPT];
+  bool any = false;
 #pragma unroll
-  for (int j = 0; j < MAX_RPT; ++j) rem[j] = mask[j];
+  for (int j = 0; j < RPT; ++j) {
+    rem[j] = mask[j];
+    any |= rem[j];
+  }
   for (int r = 0; r < WAYS; ++r) {
+    if (!__syncthreads_or(any)) break;
 #pragma unroll
-    for (int j = 0; j < MAX_RPT; ++j)
+    for (int j = 0; j < RPT; ++j)
       if (rem[j]) claims[bkt[j]] = INT_MAX;
     __syncthreads();
 #pragma unroll
-    for (int j = 0; j < MAX_RPT; ++j)
+    for (int j = 0; j < RPT; ++j)
       if (rem[j]) atomicMin(&claims[bkt[j]], (int)(threadIdx.x + j * blockDim.x));
     __syncthreads();
+    any = false;
 #pragma unroll
-    for (int j = 0; j < MAX_RPT; ++j) {
+    for (int j = 0; j < RPT; ++j) {
       if (rem[j] && claims[bkt[j]] == (int)(threadIdx.x + j * blockDim.x)) {
         const int w = nth_free(fm[j], r);
         if (w >= 0) dest[j] = bkt[j] * WAYS + w;
         rem[j] = false;
       }
+      any |= rem[j];
     }
-    __syncthreads();
   }
+}
+
+// one bucket's WAYS ints of a table row in one 16-byte load: a bucket
+// is WAYS = 4 ints and mp_kv_insert refuses a table that is not
+// 16-byte aligned
+__device__ __forceinline__ void load_bucket(const int* row, int bkt,
+                                            int (&o)[WAYS]) {
+  const int4 x = *reinterpret_cast<const int4*>(row + bkt * WAYS);
+  o[0] = x.x;
+  o[1] = x.y;
+  o[2] = x.z;
+  o[3] = x.w;
 }
 
 __device__ __forceinline__ bool bit_at(const unsigned* bits, int i) {
   return (bits[i >> 5] >> (i & 31)) & 1u;
+}
+
+// the ways of ``mask`` whose entry in bucket ``bkt`` of a table row
+// equals ``key``; no load when the mask is empty
+__device__ __forceinline__ int ways_equal(const int* row, int bkt, int mask,
+                                          int key) {
+  if (!mask) return 0;
+  int o[WAYS];
+  load_bucket(row, bkt, o);
+  int eq = 0;
+#pragma unroll
+  for (int w = 0; w < WAYS; ++w) eq |= (o[w] == key) << w;
+  return mask & eq;
 }
 
 // Pass C, run by one thread: the first DISPLACE_ROUNDS failing rows
@@ -208,8 +264,10 @@ __device__ int displace(const int* key_hi, const int* key_lo,
 }
 
 // G: the claim arrays live in the global scratch (else shared memory);
-// a template argument, so the shared path keeps shared-memory accesses
-template <bool G>
+// a template argument, so the shared path keeps shared-memory accesses.
+// RPT: rows per thread (E <= RPT * 1024), so a block of E <= 1024 rows
+// holds one row's state per thread in few registers.
+template <bool G, int RPT>
 __global__ void __launch_bounds__(1024)
 mp_kv_insert_k(int* __restrict__ key_hi, int* __restrict__ key_lo,
                int* __restrict__ val, int* __restrict__ slot,
@@ -232,77 +290,90 @@ mp_kv_insert_k(int* __restrict__ key_hi, int* __restrict__ key_lo,
   int* moves = reinterpret_cast<int*>(failbits + nfw);
   const long long tb = b * (long long)C;
   const long long rb = b * (long long)E;
-  for (int j = threadIdx.x; j < ncw; j += blockDim.x) taken[j] = 0u;
 
-  bool place[MAX_RPT];
-  int match[MAX_RPT], bktA[MAX_RPT], fmA[MAX_RPT], bktB[MAX_RPT],
-      fm2[MAX_RPT], destA[MAX_RPT], destB[MAX_RPT], destC[MAX_RPT];
+  // probe, for valid rows only: each candidate bucket of slot in one
+  // load, then key_lo only for a bucket with a LIVE way and key_hi only
+  // for a bucket whose key_lo matched
+  bool place[RPT];
+  int match[RPT], bktA[RPT], fmA[RPT], bktB[RPT], fm2[RPT], destA[RPT],
+      destB[RPT], destC[RPT];
 #pragma unroll
-  for (int j = 0; j < MAX_RPT; ++j) {
+  for (int j = 0; j < RPT; ++j) {
     const int i = threadIdx.x + j * blockDim.x;
     place[j] = false;
     match[j] = destA[j] = destB[j] = destC[j] = -1;
     bktA[j] = bktB[j] = fmA[j] = fm2[j] = 0;
-    if (i < E) {
+    if (i < E && valid[rb + i]) {
       const int hi = khi[rb + i], lo = klo[rb + i];
       int b1, b2;
       cand_buckets(C, hi, lo, b1, b2);
-      int f1 = 0, f2 = 0, mp = -1;
+      int s1[WAYS], s2[WAYS];
+      load_bucket(slot + tb, b1, s1);
+      load_bucket(slot + tb, b2, s2);
+      int f1 = 0, f2 = 0, m1 = 0, m2 = 0;
 #pragma unroll
-      for (int w = 0; w < 2 * WAYS; ++w) {
-        const int pos = (w < WAYS ? b1 : b2) * WAYS + (w & (WAYS - 1));
-        const int s = slot[tb + pos];
-        if (mp < 0 && s == LIVE && key_hi[tb + pos] == hi &&
-            key_lo[tb + pos] == lo)
-          mp = pos;
-        if (s == EMPTY) {
-          if (w < WAYS) f1 |= 1 << w;
-          else f2 |= 1 << (w - WAYS);
-        }
+      for (int w = 0; w < WAYS; ++w) {
+        f1 |= (s1[w] == EMPTY) << w;
+        f2 |= (s2[w] == EMPTY) << w;
+        m1 |= (s1[w] == LIVE) << w;
+        m2 |= (s2[w] == LIVE) << w;
       }
-      const bool vld = valid[rb + i] != 0;
+      m1 = ways_equal(key_lo + tb, b1, m1, lo);
+      m2 = ways_equal(key_lo + tb, b2, m2, lo);
+      m1 = ways_equal(key_hi + tb, b1, m1, hi);
+      m2 = ways_equal(key_hi + tb, b2, m2, hi);
+      // the first live match in way order, bucket 1's ways first
+      match[j] = m1 ? b1 * WAYS + __ffs(m1) - 1 : m2 ? b2 * WAYS + __ffs(m2) - 1 : -1;
       const bool pref2 = __popc(f2) > __popc(f1);
-      match[j] = vld ? mp : -1;
-      place[j] = vld && mp < 0 && !del[rb + i];
+      place[j] = match[j] < 0 && !del[rb + i];
       bktA[j] = pref2 ? b2 : b1;
       fmA[j] = pref2 ? f2 : f1;
       bktB[j] = pref2 ? b1 : b2;
       fm2[j] = pref2 ? f1 : f2;
     }
   }
-  __syncthreads();
   // pass A: the emptier candidate bucket
   assign(place, bktA, fmA, destA, claims);
+  // pass B: overflow rows retry the other bucket minus pass-A claims,
+  // only in a block that has any
+  bool maskB[RPT], fail[RPT];
+  bool any_b = false, any_fail = false;
 #pragma unroll
-  for (int j = 0; j < MAX_RPT; ++j)
-    if (destA[j] >= 0) atomicOr(&taken[destA[j] >> 5], 1u << (destA[j] & 31));
-  __syncthreads();
-  // pass B: overflow rows retry the other bucket minus pass-A claims
-  bool maskB[MAX_RPT];
-  int fmB[MAX_RPT];
-#pragma unroll
-  for (int j = 0; j < MAX_RPT; ++j) {
-    const int bk = bktB[j];
-    const unsigned tk = (taken[bk >> 3] >> ((bk & 7) * WAYS)) & 0xFu;
+  for (int j = 0; j < RPT; ++j) {
     maskB[j] = place[j] && destA[j] < 0;
-    fmB[j] = fm2[j] & ~(int)tk;
+    fail[j] = false;
+    any_b |= maskB[j];
   }
-  assign(maskB, bktB, fmB, destB, claims);
-  bool fail[MAX_RPT];
-  bool any_fail = false;
+  if (__syncthreads_or(any_b)) {
+    for (int j = threadIdx.x; j < ncw; j += blockDim.x) taken[j] = 0u;
+    __syncthreads();
 #pragma unroll
-  for (int j = 0; j < MAX_RPT; ++j) {
-    if (destB[j] >= 0) atomicOr(&taken[destB[j] >> 5], 1u << (destB[j] & 31));
-    fail[j] = maskB[j] && destB[j] < 0;
-    any_fail |= fail[j];
+    for (int j = 0; j < RPT; ++j)
+      if (destA[j] >= 0) atomicOr(&taken[destA[j] >> 5], 1u << (destA[j] & 31));
+    __syncthreads();
+    int fmB[RPT];
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+      const int bk = bktB[j];
+      const unsigned tk = (taken[bk >> 3] >> ((bk & 7) * WAYS)) & 0xFu;
+      fmB[j] = fm2[j] & ~(int)tk;
+    }
+    assign(maskB, bktB, fmB, destB, claims);
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+      if (destB[j] >= 0) atomicOr(&taken[destB[j] >> 5], 1u << (destB[j] & 31));
+      fail[j] = maskB[j] && destB[j] < 0;
+      any_fail |= fail[j];
+    }
   }
-  // pass C: displacement, only in a table with rows left over
+  // pass C: displacement, only in a table with rows left over (taken
+  // then holds every pass-A and pass-B claim)
   if (__syncthreads_or(any_fail)) {
     for (int j = threadIdx.x; j < ncw; j += blockDim.x) pinned[j] = 0u;
     for (int j = threadIdx.x; j < nfw; j += blockDim.x) failbits[j] = 0u;
     __syncthreads();
 #pragma unroll
-    for (int j = 0; j < MAX_RPT; ++j) {
+    for (int j = 0; j < RPT; ++j) {
       const int i = threadIdx.x + j * blockDim.x;
       if (match[j] >= 0) atomicOr(&pinned[match[j] >> 5], 1u << (match[j] & 31));
       if (fail[j]) atomicOr(&failbits[i >> 5], 1u << (i & 31));
@@ -324,7 +395,7 @@ mp_kv_insert_k(int* __restrict__ key_hi, int* __restrict__ key_lo,
     __syncthreads();
     const int nm = moves[3 * DISPLACE_ROUNDS];
 #pragma unroll
-    for (int j = 0; j < MAX_RPT; ++j) {
+    for (int j = 0; j < RPT; ++j) {
       const int i = threadIdx.x + j * blockDim.x;
       if (!fail[j]) continue;
       for (int m = 0; m < nm; ++m)
@@ -333,7 +404,7 @@ mp_kv_insert_k(int* __restrict__ key_hi, int* __restrict__ key_lo,
   }
   int lost = 0;
 #pragma unroll
-  for (int j = 0; j < MAX_RPT; ++j) {
+  for (int j = 0; j < RPT; ++j) {
     const int i = threadIdx.x + j * blockDim.x;
     if (i >= E) continue;
     const int dest = match[j] >= 0 ? match[j]
@@ -341,10 +412,14 @@ mp_kv_insert_k(int* __restrict__ key_hi, int* __restrict__ key_lo,
                      : destB[j] >= 0 ? destB[j] : destC[j];
     if (fail[j] && destC[j] < 0) ++lost;
     if (dest >= 0) {
-      key_hi[tb + dest] = khi[rb + i];
-      key_lo[tb + dest] = klo[rb + i];
+      // a matched way already holds the key and LIVE: only its value
+      // changes, and its slot when the row deletes
+      if (match[j] < 0) {
+        key_hi[tb + dest] = khi[rb + i];
+        key_lo[tb + dest] = klo[rb + i];
+      }
       for (int l = 0; l < L; ++l) val[(tb + dest) * L + l] = v[(rb + i) * L + l];
-      slot[tb + dest] = del[rb + i] ? EMPTY : LIVE;
+      if (match[j] < 0 || del[rb + i]) slot[tb + dest] = del[rb + i] ? EMPTY : LIVE;
     }
   }
   if (lost) atomicAdd(dropped + b, lost);
@@ -366,6 +441,51 @@ MP_EXPORT long long mp_kv_insert_scratch_ints(int E, int C) {
   return (long long)(kv_insert_table_bytes(C) / 4);
 }
 
+struct KvInsertArgs {
+  int *key_hi, *key_lo, *val, *slot, *dropped;
+  const int *khi, *klo, *v;
+  const unsigned char *del, *valid;
+  int E, C, L;
+  int* scratch;
+};
+
+// The launch shape of mp_kv_insert for E rows into [*, C] tables:
+// rows per thread, threads, the global scratch stride (0: shared) and
+// the dynamic shared memory. Returns MP_ERR_SHAPE for a shape the
+// kernel does not take.
+static int kv_insert_shape(int E, int C, int& rpt, int& threads,
+                           long long& gstride, size_t& smem) {
+  if (C < WAYS || (C & (C - 1)) || E <= 0) return MP_ERR_SHAPE;
+  rpt = E <= 1024 ? 1 : E <= 2048 ? 2 : MAX_RPT;
+  threads = (((E + rpt - 1) / rpt + 31) / 32) * 32;
+  if (threads > 1024) return MP_ERR_SHAPE;
+  gstride = mp_kv_insert_scratch_ints(E, C);
+  smem = gstride ? kv_insert_tail_bytes(E)
+                 : kv_insert_table_bytes(C) + kv_insert_tail_bytes(E);
+  return smem > 227 * 1024 ? MP_ERR_SHAPE : 0;
+}
+
+template <bool G, int RPT>
+static int kv_insert_launch(const KvInsertArgs& a, long long rows, int threads,
+                            long long gstride, size_t smem, cudaStream_t s) {
+  static size_t optin = 0;
+  const int oe = mp_smem_optin((const void*)mp_kv_insert_k<G, RPT>, smem, &optin);
+  if (oe) return oe;
+  mp_kv_insert_k<G, RPT><<<(int)rows, threads, smem, s>>>(
+      a.key_hi, a.key_lo, a.val, a.slot, a.dropped, a.khi, a.klo, a.v, a.del,
+      a.valid, a.E, a.C, a.L, a.scratch, gstride);
+  return 0;
+}
+
+template <bool G>
+static int kv_insert_rpt(const KvInsertArgs& a, long long rows, int rpt,
+                         int threads, long long gstride, size_t smem,
+                         cudaStream_t s) {
+  if (rpt == 1) return kv_insert_launch<G, 1>(a, rows, threads, gstride, smem, s);
+  if (rpt == 2) return kv_insert_launch<G, 2>(a, rows, threads, gstride, smem, s);
+  return kv_insert_launch<G, MAX_RPT>(a, rows, threads, gstride, smem, s);
+}
+
 MP_EXPORT int mp_kv_insert(int* key_hi, int* key_lo, int* val, int* slot,
                            int* dropped, const int* khi, const int* klo,
                            const int* v, const unsigned char* del,
@@ -373,25 +493,17 @@ MP_EXPORT int mp_kv_insert(int* key_hi, int* key_lo, int* val, int* slot,
                            int C, int L, int* scratch, cudaStream_t s) {
   if (C < WAYS || (C & (C - 1))) return MP_ERR_SHAPE;
   if (rows <= 0 || E <= 0) return (int)cudaGetLastError();
-  int threads = ((E + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
-  if ((E + threads - 1) / threads > MAX_RPT) return MP_ERR_SHAPE;
-  const long long gstride = mp_kv_insert_scratch_ints(E, C);
+  int rpt, threads;
+  long long gstride;
+  size_t smem;
+  if (kv_insert_shape(E, C, rpt, threads, gstride, smem)) return MP_ERR_SHAPE;
   if (gstride && !scratch) return MP_ERR_SHAPE;
-  const size_t smem = gstride ? kv_insert_tail_bytes(E)
-                              : kv_insert_table_bytes(C) + kv_insert_tail_bytes(E);
-  if (smem > 227 * 1024) return MP_ERR_SHAPE;
-  if (gstride) {
-    mp_kv_insert_k<true><<<(int)rows, threads, smem, s>>>(
-        key_hi, key_lo, val, slot, dropped, khi, klo, v, del, valid, E, C, L,
-        scratch, gstride);
-  } else {
-    static size_t optin = 0;
-    const int oe = mp_smem_optin((const void*)mp_kv_insert_k<false>, smem, &optin);
-    if (oe) return oe;
-    mp_kv_insert_k<false><<<(int)rows, threads, smem, s>>>(
-        key_hi, key_lo, val, slot, dropped, khi, klo, v, del, valid, E, C, L,
-        nullptr, 0);
-  }
-  return (int)cudaGetLastError();
+  // the probe reads a bucket in one 16-byte load
+  if (((uintptr_t)key_hi | (uintptr_t)key_lo | (uintptr_t)slot) % 16) return MP_ERR_SHAPE;
+  const KvInsertArgs a{key_hi, key_lo, val, slot, dropped, khi, klo, v, del,
+                       valid, E, C, L, gstride ? scratch : nullptr};
+  const int rc = gstride ? kv_insert_rpt<true>(a, rows, rpt, threads, gstride, smem, s)
+                         : kv_insert_rpt<false>(a, rows, rpt, threads, 0, smem, s);
+  return rc ? rc : (int)cudaGetLastError();
 }
+

@@ -89,6 +89,34 @@ def _buckets(capacity: int, k_hi: torch.Tensor, k_lo: torch.Tensor):
     return b1, b2
 
 
+def _grouped_keys(capacity: int, n: int, generator: torch.Generator,
+                  sizes=(2, 4, 6)) -> torch.Tensor:
+    """``n`` distinct int32 keys (key_hi 0) in groups of ``sizes`` in
+    turn, each group sharing its first candidate bucket of a
+    ``capacity``-way table, a bucket per group: the contention that
+    K4 insert's claim rounds and pass B resolve (its card tests and
+    ``chip_smoke.py``'s compare draw their keys here)."""
+    dev = generator.device
+    cand = torch.unique(torch.randint(0, 1 << 30, (1 << 22,), device=dev, dtype=I32,
+                                      generator=generator))
+    b1, _ = _buckets(capacity, torch.zeros_like(cand), cand)
+    b1, order = torch.sort(b1, stable=True)
+    cand = cand[order]
+    _, counts = torch.unique_consecutive(b1, return_counts=True)
+    keys, have, start = [], 0, 0
+    for cnt in counts.tolist():
+        want = min(sizes[len(keys) % len(sizes)], n - have)
+        if want <= 0:
+            break
+        if cnt >= want:
+            keys.append(cand[start:start + want])
+            have += want
+        start += cnt
+    if have != n:
+        raise ValueError(f"_grouped_keys: {have} of {n} keys (too few per bucket)")
+    return torch.cat(keys)
+
+
 def _cand_pos(capacity: int, k_hi: torch.Tensor, k_lo: torch.Tensor) -> torch.Tensor:
     """The 2*WAYS candidate positions of each key: int64[..., 2W],
     bucket 1's ways then bucket 2's."""

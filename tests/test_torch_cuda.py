@@ -45,6 +45,48 @@ def test_scatter_max_kernel(dev):
                        winner._scatter_max_plain(64, tgt, val, ok, -1))
 
 
+# K2 forms: (batch, rows, size, fill, target range, ok share, value
+# range); targets past [0, size] and negative ones go to the sink
+_SM_CASES = {
+    "window_fill-1": (64, 2176, 4096, -1, (-8, 4105), 0.5, (-3, 4352)),
+    "window_int32_min": (32, 2112, 4096, -2 ** 31, (-8, 4105), 0.5, (-2 ** 31, 2 ** 31 - 1)),
+    "window_2049": (16, 1024, 2048, -1, (-4, 2060), 0.5, (-3, 64)),
+    "window_4097_B1": (1, 2176, 4096, -1, (-4, 4100), 0.5, (-3, 64)),
+    "window_16385": (8, 2048, 16384, -1, (-4, 16390), 0.5, (-3, 64)),
+    "above_one_tile": (4, 2048, 39999, -1, (-4, 40005), 0.5, (-3, 64)),
+    "narrow_R5_fill-2^30": (1280, 2176, 5, -2 ** 30, (0, 6), 1.0, (-2 ** 30, 1 << 20)),
+    "narrow_R3_B1": (1, 1024, 3, -2 ** 30, (-2, 6), 0.8, (-2 ** 30, 1 << 20)),
+    "window_21": (40, 300, 20, -1, (-2, 25), 0.7, (-5, 5)),
+    "all_masked": (16, 512, 4096, -1, (0, 4097), 0.0, (-3, 64)),
+    "all_out_of_range": (16, 512, 4096, -1, (4097, 9000), 1.0, (-3, 64)),
+    "duplicates_equal": (16, 512, 4096, -1, (0, 4), 1.0, (7, 8)),
+    "rows_not_multiple_of_4": (16, 1001, 4096, -1, (-4, 4100), 0.5, (-3, 64)),
+    "no_rows": (4, 0, 4096, -5, (0, 1), 1.0, (0, 1)),
+}
+
+
+@pytest.mark.parametrize("case", list(_SM_CASES))
+def test_scatter_max_forms(dev, case):
+    """K2 against its twin in every form the steps use (fills -1 =
+    NO_BALLOT, INT32_MIN, -2^30; windows of 2,049 to 16,385 columns,
+    one wider than a tile, the narrow peer-frontier rows), at B = 1,
+    with every row masked or out of range, duplicate targets with equal
+    values, rows that do not fill 16-byte loads, and inputs that start
+    off a 16-byte boundary."""
+    from minpaxos_tpu_torch.ops import winner
+
+    b, m, size, fill, (t_lo, t_hi), p_ok, (v_lo, v_hi) = _SM_CASES[case]
+    g = _gen(dev, len(case))
+    tgt = torch.randint(t_lo, t_hi, (b, m), device=dev, dtype=torch.int32, generator=g)
+    val = torch.randint(v_lo, v_hi, (b, m), device=dev, dtype=torch.int32, generator=g)
+    ok = torch.rand((b, m), device=dev, generator=g) < p_ok
+    want = winner._scatter_max_plain(size, tgt, val, ok, fill)
+    assert torch.equal(winner.scatter_max(size, tgt, val, ok, fill), want)
+    # the same rows one element into their storage (scalar loads)
+    shifted = [torch.cat([x.new_zeros(1), x.flatten()])[1:].view(b, m) for x in (tgt, val, ok)]
+    assert torch.equal(winner.scatter_max(size, *shifted, fill), want)
+
+
 @pytest.mark.parametrize("n", [1, 100, 512, 1500])
 def test_scan_kernels(dev, n):
     from minpaxos_tpu_torch.ops import scan
@@ -194,6 +236,94 @@ def _colliding_keys(kvs, c, n_buckets, n, dev, seed):
         b1, _ = kvs._buckets(c, torch.zeros_like(lo), lo)
         found.append(lo[b1 < n_buckets])
     return torch.unique(torch.cat(found))[:n]
+
+
+def _distinct_bucket_keys(kvs, c, n, dev, seed):
+    """``n`` keys whose first candidate buckets are all distinct."""
+    g = _gen(dev, seed)
+    lo = torch.unique(torch.randint(0, 1 << 30, (4 * n + 64,), device=dev,
+                                    dtype=torch.int32, generator=g))
+    b1, _ = kvs._buckets(c, torch.zeros_like(lo), lo)
+    first = torch.ones_like(b1, dtype=torch.bool)
+    b1s, order = torch.sort(b1, stable=True)
+    first[1:] = b1s[1:] != b1s[:-1]
+    keys = lo[order][first]
+    assert len(keys) >= n
+    return keys[torch.randperm(len(keys), device=dev, generator=g)[:n]]
+
+
+@pytest.mark.parametrize("pow2", [15, 18])
+@pytest.mark.parametrize("e", [1, 512, 4096])
+@pytest.mark.parametrize("pattern", ["no_contention", "groups_2_4_6", "displacement"])
+def test_kv_insert_claims(dev, pow2, e, pattern):
+    """K4 insert against its twin on shared (C = 2^15) and global (2^18)
+    claim scratch at E = 1, 512 and 4,096 rows:
+    * no_contention: keys with distinct first buckets into an empty
+      table, so no two rows claim one bucket;
+    * groups_2_4_6: keys sharing one bucket in groups of 2, 4 and 6,
+      rows shuffled per table, into an empty table (a group of 6 has
+      two rows of rank >= WAYS, so pass B runs) and again into the
+      table that left;
+    * displacement: random keys into tables 90% full, where rows fit
+      in neither bucket and pass C moves residents."""
+    from minpaxos_tpu_torch.ops import kvstore as kvs
+
+    C, B = 1 << pow2, 2
+    g = _gen(dev, pow2 + e)
+    kv = kvs.kv_init(pow2, B, dev)
+
+    def rows(lo):
+        hi = torch.zeros_like(lo)
+        v = torch.randint(0, 1 << 30, lo.shape + (2,), device=dev, dtype=torch.int32,
+                          generator=g)
+        dele = torch.rand(lo.shape, device=dev, generator=g) < 0.05
+        ok = torch.rand(lo.shape, device=dev, generator=g) < 0.95
+        return hi, lo, v, dele, ok
+
+    def shuffled(keys):
+        perm = torch.argsort(torch.rand((B, e), device=dev, generator=g), 1)
+        return keys[perm].contiguous()
+
+    if pattern == "no_contention":
+        batches = [shuffled(_distinct_bucket_keys(kvs, C, e, dev, pow2))]
+    elif pattern == "groups_2_4_6":
+        keys = kvs._grouped_keys(C, 2 * e, _gen(dev, pow2))
+        batches = [shuffled(keys[:e]), shuffled(keys[e:])]
+    else:
+        n = int(0.9 * C)
+        fill = torch.unique(torch.randint(0, 1 << 30, (n + n // 8,), device=dev,
+                                          dtype=torch.int32, generator=g))[:n]
+        kv = kvs._kv_insert_plain(kv, *rows(fill[None].expand(B, -1).contiguous()))
+        batches = [torch.unique(torch.randint(0, 1 << 30, (e,), device=dev,
+                                              dtype=torch.int32, generator=g))
+                   [None].expand(B, -1).contiguous()]
+    moved = 0
+    for lo in batches:
+        args = rows(lo)
+        pre = kvs.KVState(*[t.clone() for t in kv])
+        want = kvs._kv_insert_plain(pre, *args)
+        kv = kvs.kv_insert_unique(kv, *args)
+        for a, b in zip(kv, want):
+            assert torch.equal(a, b)
+        moved += int(((pre.slot == 1) & (kv.slot == 1) & (pre.key_lo != kv.key_lo)).sum())
+    if pattern == "displacement" and e >= 512:
+        assert moved > 0
+
+
+def test_kv_insert_refuses_misaligned_table(dev):
+    """K4 insert reads a bucket in one 16-byte load, so a table that
+    does not start on a 16-byte boundary raises instead of launching."""
+    from minpaxos_tpu_torch.ops import kvstore as kvs
+
+    B, C = 2, 1 << 10
+    slot = torch.zeros(B * C + 1, dtype=torch.int32, device=dev)[1:].view(B, C)
+    kv = kvs.kv_init(10, B, dev)._replace(slot=slot)
+    lo = torch.arange(1, 9, device=dev, dtype=torch.int32)[None].expand(B, -1).contiguous()
+    with pytest.raises(RuntimeError, match="shape not supported"):
+        kvs.kv_insert_unique(kv, torch.zeros_like(lo), lo,
+                             torch.zeros(lo.shape + (2,), dtype=torch.int32, device=dev),
+                             torch.zeros_like(lo, dtype=torch.bool),
+                             torch.ones_like(lo, dtype=torch.bool))
 
 
 @pytest.mark.parametrize("e", [128, 1024])

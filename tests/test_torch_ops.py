@@ -93,13 +93,29 @@ def test_commit_frontier():
     eq(want, tscan.commit_frontier(T(committed), T(start)))
 
 
-@pytest.mark.parametrize("fill", [-1, -(2 ** 30)])
-def test_keyed_scatter_max_and_slot_winner(fill):
+# scatter_max forms: (batch, rows, size, fill, target range, share of
+# rows ok, value range); beside the window form with fills -1 and -2^30,
+# the narrow peer-frontier form, every row in the sink (masked or out
+# of range), duplicate targets of equal values and the INT32_MIN fill
+_SM_FORMS = {
+    "-1": (8, 50, 16, -1, (-2, 19), 0.6, (-100, 100)),
+    "-1073741824": (8, 50, 16, -2 ** 30, (-2, 19), 0.6, (-100, 100)),
+    "narrow_R5_fill-2^30": (6, 203, 5, -2 ** 30, (0, 6), 1.0, (-2 ** 30, 1 << 20)),
+    "narrow_R3_masked": (6, 203, 3, -2 ** 30, (-2, 7), 0.6, (-2 ** 30, 1 << 20)),
+    "sink_only_masked": (6, 203, 64, -1, (0, 65), 0.0, (-5, 50)),
+    "sink_only_out_of_range": (6, 203, 64, -1, (65, 200), 1.0, (-5, 50)),
+    "duplicates_equal": (6, 203, 64, -1, (0, 3), 1.0, (7, 8)),
+    "int32_min_fill": (6, 203, 64, -2 ** 31, (-3, 68), 0.5, (-2 ** 31, 2 ** 31 - 1)),
+}
+
+
+@pytest.mark.parametrize("form", list(_SM_FORMS))
+def test_keyed_scatter_max_and_slot_winner(form):
+    b, m, size, fill, (t_lo, t_hi), p_ok, (v_lo, v_hi) = _SM_FORMS[form]
     rng = np.random.default_rng(4)
-    b, m, size = 8, 50, 16
-    tgt = rng.integers(-2, size + 3, (b, m)).astype(np.int32)
-    val = rng.integers(-100, 100, (b, m)).astype(np.int32)
-    ok = rng.random((b, m)) < 0.6
+    tgt = rng.integers(t_lo, t_hi, (b, m)).astype(np.int32)
+    val = rng.integers(v_lo, v_hi, (b, m), dtype=np.int64).astype(np.int32)
+    ok = rng.random((b, m)) < p_ok
 
     def jax_row(t, v, o):
         return jnp.full(size + 1, fill, jnp.int32).at[
