@@ -11,14 +11,18 @@ Phases, each printing one JSON line:
               on the card, at the shapes of each path below (MinPaxos,
               Mencius, then one TCP replica server: B = 1, 2^18-way KV
               table, K7 on the leader's outputs of a live exchange), on
-              seeded inputs; integer results, compared for equality.
+              seeded inputs; integer results, compared for equality
+              (K1 and K6 on 11 launches each, so a race shows).
               Besides: K7 at a batch of 1,280 replicas, K4 insert on
               2^18-way tables 90% full, K4 insert at each path's shapes
               on keys that share their first candidate bucket in groups
               of 2, 4 and 6 (the phase fails if no block contended, or
               no bucket overflowed into pass B), K5 vote bits with five
-              replicas and K6 at the server's default window of 16,384
-              slots. K8
+              replicas, K6 at the server's default window of 16,384
+              slots, and K6 on windows with no NONE slot (every
+              committed slot above the frontier a candidate) and with
+              every slot one key, at the Mencius shape and at 16,384
+              slots, each timed. K8
               (the round's PROPOSE rows: a round where cmd_id wraps, a
               hot-key batch, the numpy twin too), K9 (round_open /
               round_close, ring armed and off, a drain sub-step) and K10
@@ -266,6 +270,12 @@ def max_abs_err(a, b) -> float:
 
 # ---------------------------------------------------------------- phase 2
 
+def repeat_err(fn_k, want, n: int = 10) -> float:
+    """The largest difference from ``want`` over ``n`` more launches of a
+    kernel: a race between its threads shows as a launch that differs."""
+    return max(max_abs_err(fn_k(), want) for _ in range(n))
+
+
 def claim_contention(kv, k_hi, k_lo, delete, valid) -> dict:
     """How much the claim logic of an insert has to resolve: the rows to
     place whose pass-A bucket (the emptier candidate) another such row
@@ -320,6 +330,42 @@ def insert_bytes(kv, after, k_hi, k_lo, delete, valid) -> int:
             + int(match.sum().item()) * 8 * lanes + int((match & delete).sum().item()) * 4
             + placed * (4 * lanes + entry) + moved * (8 + 4 * lanes + entry)
             + 8 * int((lost > 0).sum().item()))
+
+
+def exec_bytes(key_hi, key_lo, status, op, executed, wb, cu, eu, e) -> int:
+    """The bytes K6 must move for these windows, counted from the data:
+    the status, op and executed bytes of every slot, the 8-byte key of
+    each poisoned slot at or below its row's last candidate (no other
+    key can change the answer), the three cursors, and slot_of and
+    newly_exec written once."""
+    from minpaxos_tpu_torch.wire.messages import ACCEPTED, COMMITTED, EXECUTED, NONE, Op
+
+    b, s = status.shape
+    idx = torch.arange(s, device=status.device)[None]
+    a = wb[:, None] + idx
+    rel0 = (eu + 1 - wb)[:, None]
+    pre = (idx >= rel0) & (idx < rel0 + (cu - eu).clamp(0, e)[:, None])
+    poison = (((status >= ACCEPTED) & (status < EXECUTED) & ~executed & ~pre)
+              | ((status == ACCEPTED) & ((op == int(Op.PUT)) | (op == int(Op.DELETE)))))
+    gap = torch.where((a > cu[:, None]) & (status == NONE), a, 2 ** 30).amin(1, keepdim=True)
+    cand = (status == COMMITTED) & ~executed & ~pre & (a > cu[:, None]) & (a < gap)
+    last = torch.where(cand, idx, -1).amax(1, keepdim=True)
+    keys = int((poison & (idx <= last)).sum().item())
+    return b * s * 3 + keys * 8 + b * 12 + b * e * 4 + b * s
+
+
+def exec_cases(b: int, s: int, e: int, seed: int, dev) -> dict:
+    """K6's adversarial windows, [b, s] with budget e, from the families
+    the card tests run (``ops/mencius_exec.py exec_families``):
+    ``no_gap`` (no NONE slot in the window, so every committed slot above
+    the frontier is a candidate and the E budget binds) and ``one_key``
+    (every slot the same key: every candidate's key is hot)."""
+    from minpaxos_tpu_torch.ops import mencius_exec
+
+    fam = mencius_exec.exec_families(np.random.default_rng(seed), b, s, e,
+                                     names=("no_gap", "one_key"))
+    return {name: tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in arrs) + (e,)
+            for name, arrs in fam.items()}
 
 
 def compare_kernels(dev, seed: int, sh: Shapes) -> tuple[dict, float]:
@@ -424,8 +470,9 @@ def compare_kernels(dev, seed: int, sh: Shapes) -> tuple[dict, float]:
             win, hit = segscatter.route_plan(cols[0], dst, alive, M_OUT, CAP)
             return segscatter.gather_rows(cols, win, hit), hit
 
+        want = rt_p()
         res["route"] = dict(
-            err=max_abs_err(rt_k(), rt_p()), **times(rt_k, rt_p),
+            err=max(max_abs_err(rt_k(), want), repeat_err(rt_k, want)), **times(rt_k, rt_p),
             bytes=G * N * 4 * 2 + G * R + 12 * G * R * CAP * 4 + G * R * CAP,
             ops=G * N * R * 8,  # destined test per (row, destination)
             shapes=f"cols [12,{G},{N}], dst [{G},{N}] -> [12,{G},{R},{CAP}]")
@@ -608,12 +655,32 @@ def compare_kernels(dev, seed: int, sh: Shapes) -> tuple[dict, float]:
         ex_k = lambda: mencius_exec.exec_select(*x_args)  # noqa: E731
         ex_p = lambda: mencius_exec._exec_select_plain(*x_args)  # noqa: E731
         got = ex_k()
+        want = ex_p()
+        err = max(max_abs_err(got, want), repeat_err(ex_k, want))
+        # one PyTorch call for part of the function: the stable sort of
+        # the window's composite keys (signed key_hi, then signed key_lo)
+        comp = (x_hi.to(torch.int64) << 32) + (x_lo.to(torch.int64) + 2 ** 31)
+        lib_sort = lambda: torch.sort(comp, dim=1, stable=True)  # noqa: E731
+        # adversarial windows, each timed and held against the twin: no
+        # NONE slot (every committed slot above the frontier a candidate,
+        # the E budget binding) and every slot one key
+        cases = {}
+        for name, args in exec_cases(B, S, E, seed, dev).items():
+            k_out = mencius_exec.exec_select(*args)
+            cases[name] = dict(err=max_abs_err(k_out, mencius_exec._exec_select_plain(*args)),
+                               ms=graph_ms(lambda a=args: mencius_exec.exec_select(*a)),
+                               bytes=exec_bytes(*args),
+                               ranked=int((k_out[0] < S).sum().item()))
+            err = max(err, cases[name]["err"])
         res["exec_select"] = dict(
-            err=max_abs_err(got, ex_p()), **times(ex_k, ex_p),
-            bytes=B * S * (4 + 4 + 1 + 1 + 1) + B * 12 + B * E * 4 + B * S,
-            # a comparison sort's n log2 n compares, plus the scans
-            ops=B * S * (int(np.log2(S)) + 4),
-            ranked=int((got[0] < S).sum().item()),
+            err=err, **times(ex_k, ex_p, lib_sort),
+            library_what="torch.sort(stable) of the [B, S] int64 composite keys: "
+                         "the sort only, a partial function",
+            bytes=exec_bytes(*x_args),
+            # per slot: flags, gap, candidate test, the rank count; per
+            # poisoned key: a hash and a probe
+            ops=B * S * 8,
+            ranked=int((got[0] < S).sum().item()), cases=cases,
             shapes=f"window [{B},{S}] (keys, status, op, executed), cursors [{B}] "
                    f"-> slot_of [{B},{E}], newly_exec [{B},{S}]")
     res.update(compare_loop_kernels(dev, g, sh))
@@ -925,7 +992,8 @@ def compare_tcp(dev, seed: int) -> tuple[dict, dict]:
     leader's row of a live exchange at TCP_SHAPE, timed), and at a batch
     of 1,280 replicas with random anchor inputs of both protocol forms;
     K4 insert on 2^18-way tables 90% full; K5 vote bits with five
-    replicas and K6 at the server's default window (16,384 slots).
+    replicas and K6 at the server's default window (16,384 slots), timed,
+    also on ``exec_cases``' windows.
     Returns (the pack_outputs row, the extra checks, and under
     ``_dispatch_probe`` the leader's state and real inbox of that
     exchange for ``dispatch_profile``)."""
@@ -1040,6 +1108,14 @@ def compare_tcp(dev, seed: int) -> tuple[dict, dict]:
               x_eu + ri(-1, 2 * 512, (8,)), x_eu, 512)
     extra["exec_select_S16384"] = max_abs_err(mencius_exec.exec_select(*x_args),
                                               mencius_exec._exec_select_plain(*x_args))
+    # its device ms and its bound from the data, beside the check
+    extra["exec_select_S16384_ms"] = graph_ms(lambda: mencius_exec.exec_select(*x_args))
+    extra["exec_select_S16384_bound_ms"] = 1e3 * exec_bytes(*x_args) / HBM_BYTES_PER_S
+    for name, args in exec_cases(8, Sd, 512, seed, dev).items():
+        extra[f"exec_select_S16384_{name}"] = max_abs_err(
+            mencius_exec.exec_select(*args), mencius_exec._exec_select_plain(*args))
+        extra[f"exec_select_S16384_{name}_ms"] = graph_ms(
+            lambda a=args: mencius_exec.exec_select(*a))
     torch.cuda.synchronize()
     return row, extra
 
@@ -1790,7 +1866,8 @@ def main() -> None:
         torch.cuda.empty_cache()
     bad = [f"{k}@{p}" for p, r in res.items() for k, v in r.items() if v["err"] != 0]
     bad += [k for k, v in extra.items() if k.startswith(("pack_outputs", "kv_insert",
-            "vote_bits", "exec_select")) and "displaced" not in k and v != 0]
+            "vote_bits", "exec_select")) and "displaced" not in k
+            and not k.endswith("_ms") and v != 0]
     if EMPTY_GRAPHS:
         fail("compare", f"timed calls launched nothing on the capture stream: "
                         f"{EMPTY_GRAPHS}")

@@ -19,6 +19,7 @@ position before a slot against the start of its key's segment).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from minpaxos_tpu_torch import kernels as K
@@ -106,3 +107,69 @@ def exec_select(key_hi, key_lo, status, op, executed, window_base,
                                   exec_batch)
     return _exec_select_kernel(key_hi, key_lo, status, op, executed, window_base,
                                committed_upto, executed_upto, exec_batch)
+
+
+def exec_families(rng, b: int, s: int, e: int, names=None) -> dict:
+    """K6 input families as numpy (key_hi, key_lo, status, op, executed,
+    window_base, committed_upto, executed_upto) for a [b, s] window and
+    exec budget e, drawn from the numpy generator ``rng``: ``random``
+    (duplicate keys, NONE gaps, uncommitted writes); ``one_key`` (every
+    slot the key (-1, -1)); ``distinct_keys``; ``gap_at_slot_0`` (the
+    frontier below the window and its first slot NONE); ``no_gap`` (no
+    NONE slot); ``frontier_past_window`` (committed_upto beyond the
+    window's end); ``budget_binds`` (no gap, mostly committed, prefix and
+    candidates past e). ``names`` picks some families (all by default);
+    the card tests, the CPU oracle test and ``chip_smoke.py`` share
+    these windows."""
+    st_codes = np.array([0, 3, 4, 4, 4, 5], np.uint8)
+
+    def status(p):
+        return st_codes[rng.choice(6, (b, s), p=p)]
+
+    def base(st):
+        key_hi = rng.integers(-1, 1, (b, s)).astype(np.int32)
+        key_lo = rng.integers(-3, 4 + s // 16, (b, s)).astype(np.int32)
+        op = rng.integers(0, 4, (b, s)).astype(np.uint8)
+        executed = (st == 5) | (rng.random((b, s)) < 0.05)
+        wb = rng.integers(-5, 100, b).astype(np.int32)
+        eu = (wb + rng.integers(-2, 10, b)).astype(np.int32)
+        cu = (eu + rng.integers(-2, s // 2, b)).astype(np.int32)
+        return [key_hi, key_lo, st, op, executed, wb, cu, eu]
+
+    mix = [0.05, 0.15, 0.25, 0.25, 0.2, 0.1]
+    no_none = [0.0, 0.1, 0.3, 0.3, 0.2, 0.1]
+
+    def one_key():
+        x = base(status(mix))
+        x[0], x[1] = np.full((b, s), -1, np.int32), np.full((b, s), -1, np.int32)
+        return x
+
+    def distinct_keys():
+        x = base(status(mix))
+        x[1] = (np.arange(s, dtype=np.int32)[None, :] * 7 + rng.integers(0, 1000, (b, 1))
+                ).astype(np.int32)
+        return x
+
+    def gap_at_slot_0():
+        x = base(status(mix))
+        x[2][:, 0] = 0
+        x[6] = (x[5] - rng.integers(1, 4, b)).astype(np.int32)
+        x[7] = (x[6] - rng.integers(0, 3, b)).astype(np.int32)
+        return x
+
+    def frontier_past_window():
+        x = base(status(mix))
+        x[6] = (x[5] + s + rng.integers(0, 9, b)).astype(np.int32)
+        return x
+
+    def budget_binds():
+        x = base(status([0.0, 0.05, 0.4, 0.4, 0.1, 0.05]))
+        x[7] = (x[5] + rng.integers(-1, 3, b)).astype(np.int32)
+        x[6] = (x[7] + rng.integers(0, 2 * e + 2, b)).astype(np.int32)
+        return x
+
+    make = {"random": lambda: base(status(mix)), "one_key": one_key,
+            "distinct_keys": distinct_keys, "gap_at_slot_0": gap_at_slot_0,
+            "no_gap": lambda: base(status(no_none)),
+            "frontier_past_window": frontier_past_window, "budget_binds": budget_binds}
+    return {n: f() for n, f in make.items() if names is None or n in names}

@@ -13,6 +13,7 @@ Inputs are seeded; results are integers and must be equal.
 
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
 
@@ -104,21 +105,98 @@ def test_scan_kernels(dev, n):
                        scan._commit_frontier_plain(committed, start))
 
 
-def test_route_kernel(dev):
+# K1 cases: (groups, replicas, outbox rows per replica, inbox capacity,
+# live-row share, broadcast / unicast shares of dst, alive share); dst
+# draws of unicast are in [-3, R + 1], so client rows (-2), rows to
+# self and out-of-range destinations occur
+_RT_CASES = {
+    "random": (4, 5, 50, 64, 0.6, (0.5, 0.3), 0.8),
+    "every_row_dead": (4, 5, 50, 64, 0.0, (0.5, 0.3), 1.0),
+    "broadcasts_overflow_cap": (8, 5, 200, 64, 1.0, (1.0, 0.0), 1.0),
+    "zero_tail": (8, 5, 400, 1664, 0.05, (0.5, 0.3), 1.0),
+    "dead_destination": (16, 5, 300, 256, 0.6, (0.5, 0.3), -1.0),
+    "R3_not_a_tile_multiple": (6, 3, 1111, 700, 0.5, (0.4, 0.4), 0.9),
+    "R5_mainpath_rows": (4, 5, 3265, 1664, 0.6, (0.5, 0.3), 0.95),
+    "R7_two_chunks": (4, 7, 3001, 2048, 0.4, (0.3, 0.5), 0.9),
+    "cap_not_a_multiple_of_4": (4, 5, 50, 65, 0.6, (0.5, 0.3), 0.8),
+    "N_a_multiple_of_the_chunk": (3, 4, 4096, 600, 0.7, (0.5, 0.3), 1.0),
+    "R17_past_the_block_map": (3, 17, 300, 900, 0.5, (0.4, 0.4), 0.9),
+    "cap_past_the_block_map": (2, 5, 4000, 16384, 0.9, (0.6, 0.3), 1.0),
+}
+
+
+@pytest.mark.parametrize("case", list(_RT_CASES))
+def test_route_kernel(dev, case):
+    """K1 against route_plan + gather_rows: every row dead, broadcasts
+    past the capacity, a mostly empty outbox (the zero tail), one dead
+    destination per group (alive share -1), R of 3, 4, 5 and 7, pooled
+    row counts that are no multiple of a thread's 32 rows and one that
+    is exactly one chunk (16,384 pooled rows), an outbox of more than one
+    chunk per group, and a capacity that takes the kernel's one-slot
+    stores instead of its 16-byte ones; then the shapes the one-block
+    kernel's shared-memory slot map cannot hold, which take its
+    per-(group, destination) kernel: 17 replicas, and an R x capacity
+    map of 81,920 slots."""
     from minpaxos_tpu_torch.ops import segscatter
 
-    g = _gen(dev, 3)
-    G, R, m, cap = 4, 5, 50, 64
-    cols = torch.randint(-5, 99, (12, G, R * m), device=dev, dtype=torch.int32, generator=g)
-    cols[0] = torch.where(torch.rand((G, R * m), device=dev, generator=g) < 0.6, cols[0].abs() + 1, 0)
-    u = torch.rand((G, R * m), device=dev, generator=g)
-    dst = torch.where(u < 0.5, -1, torch.where(
-        u < 0.8, torch.randint(0, R, (G, R * m), device=dev, generator=g), -2)).to(torch.int32)
-    alive = torch.rand((G, R), device=dev, generator=g) < 0.8
+    G, R, m, cap, p_live, (p_bc, p_uni), p_alive = _RT_CASES[case]
+    g = _gen(dev, len(case))
+    n = R * m
+    cols = torch.randint(-5, 99, (12, G, n), device=dev, dtype=torch.int32, generator=g)
+    live = torch.rand((G, n), device=dev, generator=g) < p_live
+    cols[0] = torch.where(live, cols[0].abs() + 1, 0)
+    u = torch.rand((G, n), device=dev, generator=g)
+    uni = torch.randint(-3, R + 2, (G, n), device=dev, generator=g)
+    dst = torch.where(u < p_bc, -1, torch.where(u < p_bc + p_uni, uni, -2)).to(torch.int32)
+    if p_alive < 0:
+        alive = torch.ones((G, R), dtype=torch.bool, device=dev)
+        alive[torch.arange(G, device=dev), torch.arange(G, device=dev) % R] = False
+    else:
+        alive = torch.rand((G, R), device=dev, generator=g) < p_alive
     out, hit = segscatter.route(cols, dst, alive, m, cap)
     win, phit = segscatter.route_plan(cols[0], dst, alive, m, cap)
     assert torch.equal(out, segscatter.gather_rows(cols, win, phit))
     assert torch.equal(hit, phit)
+
+
+@pytest.mark.parametrize("p_live", [0.6, 0.05])
+def test_route_kernel_repeats_at_the_deployment(dev, p_live):
+    """K1 at the MinPaxos deployment's shape (256 groups x 5 replicas,
+    3,265 outbox rows each, capacity 1,664), launched 25 times back to
+    back: every launch equals the twin, so a race between a block's warps
+    shows as a launch that differs. Dense and mostly empty outboxes."""
+    from minpaxos_tpu_torch.ops import segscatter
+
+    G, R, m, cap = 256, 5, 3265, 1664
+    g = _gen(dev, 7)
+    n = R * m
+    cols = torch.randint(-5, 1 << 20, (12, G, n), device=dev, dtype=torch.int32, generator=g)
+    cols[0] = torch.where(torch.rand((G, n), device=dev, generator=g) < p_live,
+                          cols[0].abs() + 1, 0)
+    u = torch.rand((G, n), device=dev, generator=g)
+    uni = torch.randint(0, R, (G, n), device=dev, generator=g)
+    dst = torch.where(u < 0.5, -1, torch.where(u < 0.8, uni, -2)).to(torch.int32)
+    alive = torch.rand((G, R), device=dev, generator=g) < 0.95
+    win, phit = segscatter.route_plan(cols[0], dst, alive, m, cap)
+    want = segscatter.gather_rows(cols, win, phit)
+    for _ in range(25):
+        out, hit = segscatter.route(cols, dst, alive, m, cap)
+        assert torch.equal(out, want) and torch.equal(hit, phit)
+
+
+def test_exec_select_kernel_repeats_at_the_deployment(dev):
+    """K6 at the Mencius deployment's shape (1,280 windows of 4,096
+    slots, E = 320), launched 25 times back to back: every launch equals
+    the twin."""
+    from minpaxos_tpu_torch.ops import mencius_exec
+
+    rng = np.random.default_rng(11)
+    arrs = mencius_exec.exec_families(rng, 1280, 4096, 320)["random"]
+    args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrs) + (320,)
+    want = mencius_exec._exec_select_plain(*args)
+    for _ in range(25):
+        got = mencius_exec.exec_select(*args)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_kv_kernels_and_apply(dev):
@@ -183,23 +261,24 @@ def test_ackruns_kernels(dev, stride):
                        ackruns._scatter_vote_bits_plain(S, idx, src, ok, R))
 
 
-@pytest.mark.parametrize("s,e", [(64, 12), (100, 50), (4096, 320), (16384, 512)])
-def test_exec_select_kernel(dev, s, e):
+_EX_SHAPES = [(64, 12), (100, 50), (4096, 320), (16384, 512)]
+_EX_FAMILIES = ["random", "one_key", "distinct_keys", "gap_at_slot_0", "no_gap",
+                "frontier_past_window", "budget_binds"]
+
+
+@pytest.mark.parametrize("family", _EX_FAMILIES)
+@pytest.mark.parametrize("s,e", _EX_SHAPES)
+def test_exec_select_kernel(dev, s, e, family):
+    """K6 against its twin on every input family of
+    ``ops/mencius_exec.py exec_families``
+    at windows of 64 to 16,384 slots (a window wider than one table
+    fill of candidates takes several)."""
     from minpaxos_tpu_torch.ops import mencius_exec
 
-    g = _gen(dev, s)
-    B = 40
-    key_hi = torch.randint(-1, 1, (B, s), device=dev, dtype=torch.int32, generator=g)
-    key_lo = torch.randint(-3, 4 + s // 16, (B, s), device=dev, dtype=torch.int32, generator=g)
-    p = torch.tensor([0.05, 0.15, 0.25, 0.25, 0.2, 0.1], device=dev)
-    code = torch.multinomial(p, B * s, replacement=True, generator=g).view(B, s)
-    status = torch.tensor([0, 3, 4, 4, 4, 5], device=dev, dtype=torch.uint8)[code]
-    op = torch.randint(0, 4, (B, s), device=dev, dtype=torch.uint8, generator=g)
-    executed = (status == 5) | (torch.rand((B, s), device=dev, generator=g) < 0.05)
-    wb = torch.randint(-5, 100, (B,), device=dev, dtype=torch.int32, generator=g)
-    eu = wb + torch.randint(-2, 10, (B,), device=dev, dtype=torch.int32, generator=g)
-    cu = eu + torch.randint(-2, s // 2, (B,), device=dev, dtype=torch.int32, generator=g)
-    args = (key_hi, key_lo, status, op, executed, wb, cu, eu, e)
+    rng = np.random.default_rng(s + e)
+    B = 40 if s < 16384 or family == "random" else 12
+    arrs = mencius_exec.exec_families(rng, B, s, e)[family]
+    args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrs) + (e,)
     got = mencius_exec.exec_select(*args)
     want = mencius_exec._exec_select_plain(*args)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

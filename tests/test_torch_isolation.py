@@ -24,6 +24,7 @@ def _port_files():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "wall_ab.py")
 
 
 def _modules():
@@ -41,7 +42,7 @@ def test_every_module_imports_with_jax_blocked():
         "sys.modules['minpaxos_tpu'] = None\n"
         f"sys.path.insert(0, {ROOT!r})\n"
         "import importlib\n"
-        f"for name in {sorted(_modules())!r} + ['chip_smoke']:\n"
+        f"for name in {sorted(_modules())!r} + ['chip_smoke', 'wall_ab']:\n"
         "    importlib.import_module(name)\n"
         "print('ok')\n")
     env = dict(os.environ)

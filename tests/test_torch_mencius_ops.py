@@ -6,7 +6,9 @@
 * K6's plain version (``ops/mencius_exec.py``) against a numpy oracle
   that follows the JAX step's rule (``models/mencius.py`` step 11) slot
   by slot in plain loops, on random windows with duplicate keys, gaps,
-  uncommitted writes and more candidates than the exec budget.
+  uncommitted writes and more candidates than the exec budget, and on
+  the adversarial families the card tests also run
+  (``ops/mencius_exec.py exec_families``).
 * The KV engine at Mencius's deployment (E = 320 rows per batch, tables
   of C = 2^14 ways, a 8192-key space): where the reference places every
   row the table bytes are the reference's, and nothing is dropped.
@@ -27,7 +29,7 @@ from minpaxos_tpu.ops import kvstore as jkv
 from minpaxos_tpu_torch.ops import ackruns as tack
 from minpaxos_tpu_torch.ops import kvstore as tkv
 from minpaxos_tpu_torch.ops import workload as twl
-from minpaxos_tpu_torch.ops.mencius_exec import exec_select
+from minpaxos_tpu_torch.ops.mencius_exec import exec_families, exec_select
 from minpaxos_tpu_torch.wire.messages import (
     ACCEPTED,
     COMMITTED,
@@ -149,6 +151,14 @@ def test_exec_select_matches_oracle(s, e):
     assert full.any() and (~full).any()  # budget-bound and not
     ooo = want_new & (wb[:, None] + np.arange(s)[None, :] > cu[:, None])
     assert ooo.any()  # out-of-order picks past the frontier
+    # the adversarial families the card test holds K6 to: one key, all
+    # keys distinct, the gap at slot 0, no gap, the frontier past the
+    # window, the budget binding
+    for family, arrs in exec_families(rng, b, s, e).items():
+        want_slot, want_new = _oracle(*arrs, e)
+        slot_of, newly = exec_select(*[T(a) for a in arrs], e)
+        np.testing.assert_array_equal(slot_of.numpy(), want_slot, err_msg=family)
+        np.testing.assert_array_equal(newly.numpy(), want_new, err_msg=family)
 
 
 def _kv_batched_jax(pow2, b):
