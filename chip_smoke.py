@@ -12,13 +12,20 @@ Phases, each printing one JSON line:
               Mencius, then one TCP replica server: B = 1, 2^18-way KV
               table, K7 on the leader's outputs of a live exchange), on
               seeded inputs; integer results, compared for equality
-              (K1 and K6 on 11 launches each, so a race shows).
+              (K1, K5 and K6 on 11 launches each, so a race shows).
+              K5 ack_runs and vote_bits (fused with the OR into the
+              votes table as the steps call it, under the driven-slot
+              mask on the Mencius path, and alone) run on three input
+              families of ops/ackruns.py ack_families (random, the
+              headline row; leader_only, the main path's; one_long_run),
+              each timed, the eager OR's time beside the fused call's.
               Besides: K7 at a batch of 1,280 replicas, K4 insert on
               2^18-way tables 90% full, K4 insert at each path's shapes
               on keys that share their first candidate bucket in groups
               of 2, 4 and 6 (the phase fails if no block contended, or
-              no bucket overflowed into pass B), K5 vote bits with five
-              replicas, K6 at the server's default window of 16,384
+              no bucket overflowed into pass B), K5 vote bits (fused)
+              with five replicas at the server's default window of
+              16,384 slots, timed, K6 at the server's default window of 16,384
               slots, and K6 on windows with no NONE slot (every
               committed slot above the frontier a candidate) and with
               every slot one key, at the Mencius shape and at 16,384
@@ -171,6 +178,9 @@ KERNELS = {
             "kv_insert", "ack_runs", "vote_bits", "scatter_vote_bits",
             "pack_outputs", "slot_write"),
 }
+# K5's compare families (ops/ackruns.py ack_families); the first is the
+# headline row of the kernels line
+K5_CASES = ("random", "leader_only", "one_long_run")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak
 # the published non-tensor-core rate (float32, 67 TFLOP/s); the kernels'
 # integer ALU work runs at most this fast, so ops / this is a lower bound
@@ -352,6 +362,25 @@ def exec_bytes(key_hi, key_lo, status, op, executed, wb, cu, eu, e) -> int:
     last = torch.where(cand, idx, -1).amax(1, keepdim=True)
     keys = int((poison & (idx <= last)).sum().item())
     return b * s * 3 + keys * 8 + b * 12 + b * e * 4 + b * s
+
+
+def ack_bytes(is_acc, ballot) -> int:
+    """The bytes K5 ack_runs must move for these rows, counted from the
+    data: every row's ACCEPT flag; an ACCEPT row's sender, instance and ok
+    flag (and ballot, in the run key at stride R); run_start and run_len
+    written for every row."""
+    n_acc = int(is_acc.sum().item())
+    return is_acc.numel() * (1 + 1 + 4) + n_acc * (4 + 4 + 1 + (4 if ballot is not None else 0))
+
+
+def vote_bytes(valid, s: int, into, mask) -> int:
+    """The bytes K5 vote_bits must move, counted from the data: every
+    row's valid flag; a valid row's sender, instance and count; the window
+    bases; the [B, S] votes written once, and read once when fused
+    (``into``), with the mask read once when given."""
+    b = valid.shape[0]
+    return (valid.numel() + int(valid.sum().item()) * 12 + b * 4
+            + b * s * 4 * (2 if into is not None else 1) + (b * s if mask is not None else 0))
 
 
 def exec_cases(b: int, s: int, e: int, seed: int, dev) -> dict:
@@ -586,47 +615,70 @@ def compare_kernels(dev, seed: int, sh: Shapes) -> tuple[dict, float]:
                     + [max_abs_err(out_c.cpu(), out_d), max_abs_err(f_c.cpu(), f_d)])
     del kv, pool, kv_c, kv_d
 
-    # K5: ack-run compression over [B, M] rows (bursts of one sender's
-    # instances, `stride` apart; Mencius echoes the ballot into the run
-    # key), the fused range-ack vote bits into [B, S], the vote-bit scatter
+    # K5: ack-run compression over [B, M] rows (Mencius echoes the ballot
+    # into the run key) and the range-ack vote bits fused with the OR into
+    # the [B, S] votes table (under the driven-slot mask on the Mencius
+    # path, as the step calls them), on the input families of
+    # ops/ackruns.py ack_families: random (the headline row), leader_only
+    # (the main path's: a run in every follower row, acks only in the
+    # leader rows) and one_long_run; every family held to the twins over
+    # repeated launches, the unfused form too, and timed
     d = sh.stride
-    is_acc = rb(0.8, (B, M))
-    a_src = torch.repeat_interleave(ri(0, R, (B, M // 8 + 1)), 8, dim=1)[:, :M].contiguous()
-    a_step = torch.where(rb(0.85, (B, M)), d, ri(1, 2 * R, (B, M))).to(torch.int32)
-    a_inst = torch.cumsum(a_step, 1, dtype=torch.int32) + ri(0, S, (B, 1))
-    a_ok = rb(0.9, (B, M))
-    a_bal = ri(0, 2, (B, M)) if d > 1 else None
-    ar_k = lambda: ackruns.compress_ack_runs(is_acc, a_src, a_inst, a_ok,  # noqa: E731
-                                             ballot=a_bal, stride=d)
-    ar_p = lambda: ackruns._compress_plain(is_acc, a_src, a_inst, a_ok, a_bal, d)  # noqa: E731
-    res["ack_runs"] = dict(
-        err=max_abs_err(ar_k(), ar_p()), **times(ar_k, ar_p),
-        bytes=B * M * (1 + 4 + 4 + 1 + (4 if d > 1 else 0)) + B * M * (1 + 4),
-        ops=B * M * 8,  # run test (5 compares), scan add, count, readback
-        shapes=f"rows [{B},{M}] -> run_start, run_len [{B},{M}]; stride {d}"
-               + (", ballot in the run key" if d > 1 else ""))
-    v_valid = rb(0.25, (B, M))
-    v_cnt = ri(0, 64, (B, M))
-    v_wb = ri(0, 1 << 20, (B,))
-    v_inst = v_wb[:, None] + ri(-64, S + 64, (B, M))
-    vb_k = lambda: ackruns.range_vote_bits(v_valid, a_src, v_inst, v_cnt, v_wb,  # noqa: E731
-                                           S, R, stride=d)
+    def on_dev(x):
+        return None if x is None else torch.from_numpy(x).to(dev)
 
-    def vb_p():
-        return ackruns.pack_vote_bits(ackruns.range_vote_coverage(
-            v_valid, a_src, v_inst, v_cnt, v_wb, S, R, stride=d))
-
-    n_valid = int(v_valid.sum().item())
-    plane_cells = R * (S + 1) if d == 1 else R * d * (S // d + 3)
-    got = vb_k()
-    res["vote_bits"] = dict(
-        err=max_abs_err(got, vb_p()), **times(vb_k, vb_p),
-        bytes=B * M * (1 + 4 + 4 + 4) + B * 4 + B * S * 4,
-        # per valid row: clip, ranks, two adds; per plane cell: one
-        # prefix add; per slot and replica: a compare and an or
-        ops=n_valid * 12 + B * plane_cells + B * S * R * 2,
-        voted_slots=int((got != 0).sum().item()),
-        shapes=f"rows [{B},{M}], window_base [{B}] -> votes [{B},{S}]; stride {d}")
+    fams = ackruns.ack_families(np.random.default_rng(seed), B, M, S, R, d, names=K5_CASES)
+    for name in K5_CASES:
+        runs, votes = (tuple(map(on_dev, fams[name][k])) for k in ("runs", "votes"))
+        into = on_dev(fams[name]["into"])
+        mask = on_dev(fams[name]["mask"]) if sh.path == "mencius" else None
+        ar_k = lambda r=runs: ackruns.compress_ack_runs(*r[:4], ballot=r[4], stride=d)  # noqa: E731
+        ar_p = lambda r=runs: ackruns._compress_plain(*r, d)  # noqa: E731
+        vb_k = lambda v=votes, i=into, k=mask: ackruns.range_vote_bits(  # noqa: E731
+            *v, S, R, stride=d, into=i, mask=k)
+        vb_p = lambda v=votes, i=into, k=mask: ackruns._vote_bits_plain(  # noqa: E731
+            *v, S, R, d, i, k)
+        bits_k = lambda v=votes: ackruns.range_vote_bits(*v, S, R, stride=d)  # noqa: E731
+        runs_want, want = ar_p(), vb_p()
+        bits = ackruns._vote_bits_plain(*votes, S, R, d, None, None)
+        if mask is None:
+            eager = lambda i=into, b=bits: i | b  # noqa: E731
+        else:
+            eager = lambda i=into, b=bits, k=mask: i | torch.where(k, b, 0)  # noqa: E731
+        headline = name == "random"
+        ack = dict(err=max(max_abs_err(ar_k(), runs_want), repeat_err(ar_k, runs_want)),
+                   **(times(ar_k, ar_p) if headline else dict(ms=graph_ms(ar_k))),
+                   bytes=ack_bytes(runs[0], runs[4]), max_run=int(runs_want[1].max().item()))
+        hit = int(votes[0].any(1).sum().item())
+        vote = dict(err=max(max_abs_err(vb_k(), want), repeat_err(vb_k, want),
+                            max_abs_err(bits_k(), bits), repeat_err(bits_k, bits)),
+                    **(times(vb_k, vb_p) if headline else dict(ms=graph_ms(vb_k))),
+                    bits_ms=graph_ms(bits_k), eager_or_ms=graph_ms(eager),
+                    bytes=vote_bytes(votes[0], S, into, mask),
+                    bits_bytes=vote_bytes(votes[0], S, None, None),
+                    rows_with_acks=hit, voted_slots=int((bits != 0).sum().item()))
+        if headline:
+            res["ack_runs"] = dict(
+                ack, ops=B * M * 8, cases={},  # run test, two scans, a length
+                shapes=f"rows [{B},{M}] -> run_start, run_len [{B},{M}]; stride {d}"
+                       + (", ballot in the run key" if d > 1 else ""))
+            res["vote_bits"] = dict(
+                vote, cases={},
+                # per valid row: clip, ranks, two adds; per plane cell of a
+                # row with acks: a prefix add; per slot: a compare and an or
+                # per replica in a row with acks, else a copy
+                ops=int(votes[0].sum().item()) * 12 + hit * R * (S + d) + hit * S * R * 2
+                + (B - hit) * S,
+                shapes=f"rows [{B},{M}], window_base [{B}], votes [{B},{S}]"
+                       + (f", mask [{B},{S}]" if mask is not None else "")
+                       + f" -> votes [{B},{S}]; stride {d}; fused with the OR"
+                       + (" under the mask" if mask is not None else ""))
+        else:
+            res["ack_runs"]["cases"][name] = ack
+            res["vote_bits"]["cases"][name] = vote
+        res["ack_runs"]["err"] = max(res["ack_runs"]["err"], ack["err"])
+        res["vote_bits"]["err"] = max(res["vote_bits"]["err"], vote["err"])
+    a_src = on_dev(fams["random"]["runs"][1])
     sv_idx = ri(-2, S + 3, (B, M))
     sv_ok = rb(0.3, (B, M))
     sv_k = lambda: ackruns.scatter_vote_bits(S, sv_idx, a_src, sv_ok, R)  # noqa: E731
@@ -1093,10 +1145,14 @@ def compare_tcp(dev, seed: int) -> tuple[dict, dict]:
         inst = wb[:, None] + ri(-300, Sd + 300, (4, Md))
         cnt = ri(0, 3000, (4, Md))
         okv = ri(0, 10, (4, Md)) < 3
-        extra[f"vote_bits_R5_S16384_stride{d}"] = max_abs_err(
-            ackruns.range_vote_bits(okv, src, inst, cnt, wb, Sd, R, stride=d),
-            ackruns.pack_vote_bits(ackruns.range_vote_coverage(
-                okv, src, inst, cnt, wb, Sd, R, stride=d)))
+        votes = ri(0, 1 << R, (4, Sd))
+        vb_args = (okv, src, inst, cnt, wb)
+        vb_k = lambda a=vb_args, v=votes, d=d: ackruns.range_vote_bits(  # noqa: E731
+            *a, Sd, R, stride=d, into=v)
+        want = ackruns._vote_bits_plain(*vb_args, Sd, R, d, votes, None)
+        extra[f"vote_bits_R5_S16384_stride{d}"] = max(max_abs_err(vb_k(), want),
+                                                      repeat_err(vb_k, want))
+        extra[f"vote_bits_R5_S16384_stride{d}_ms"] = graph_ms(vb_k)
     # K6 at the server's default window
     code = torch.multinomial(torch.tensor([0.02, 0.1, 0.5, 0.2, 0.0, 0.18], device=dev),
                              8 * Sd, replacement=True, generator=g).view(8, Sd)

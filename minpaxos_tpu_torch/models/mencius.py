@@ -305,15 +305,15 @@ def mencius_step_impl(cfg: MinPaxosConfig, state: MenciusState, inbox: MsgBatch,
 
     # ---- 5. ACCEPT_REPLY vote counting (range acks, my driven slots) ----
     ar_ok = is_areply & (inbox.op > 0)
-    cov = range_vote_bits(ar_ok, inbox.src, inbox.inst, inbox.cmd_id,
-                          st.window_base, S, R, stride=R)
     drv_slot = own_mask | ((st.ballot > 0) & (torch.remainder(st.ballot, 16) == col(me)))
+    st.votes = range_vote_bits(ar_ok, inbox.src, inbox.inst, inbox.cmd_id,
+                               st.window_base, S, R, stride=R, into=st.votes,
+                               mask=drv_slot)
     rep_row = (is_accept | is_areply | is_commit) & (inbox.src >= 0)
     rep_src = where(rep_row, inbox.src.clamp(0, R - 1), R)
     pc_seen = scatter_max(R, rep_src, inbox.last_committed, torch.ones_like(rep_row),
                           -_BIG)
     replied = pc_seen[:, :R] > -_BIG
-    st.votes = st.votes | where(drv_slot, cov, 0)
     st.peer_commits = where(replied, pc_seen[:, :R], st.peer_commits)
 
     # ---- 6. COMMIT rows ----

@@ -512,13 +512,12 @@ def replica_step_impl(cfg: MinPaxosConfig, state: ReplicaState, inbox: MsgBatch,
                       & (take(st.cmd_id, ar_safe) == inbox.val_lo)
                       & (take(st.client_id, ar_safe) == inbox.client_id))
         ar_ok = ar_ok & ((inbox.op != 2) | fast_match)
-    vote_bits = range_vote_bits(ar_ok, inbox.src, inbox.inst, inbox.cmd_id,
-                                st.window_base, S, R)
+    st.votes = range_vote_bits(ar_ok, inbox.src, inbox.inst, inbox.cmd_id,
+                               st.window_base, S, R, into=st.votes)
     reply_src = where(is_accept_reply | is_prep_reply, inbox.src.clamp(0, R - 1), R)
     pc_seen = scatter_max(R, reply_src, inbox.last_committed,
                           torch.ones_like(is_prep), -(2 ** 30))
     replied = pc_seen[:, :R] > -(2 ** 30)
-    st.votes = st.votes | vote_bits
     st.max_recv_ballot = torch.maximum(
         st.max_recv_ballot, masked_max(inbox.ballot, is_accept_reply, NO_BALLOT))
     st.peer_commits = where(replied, pc_seen[:, :R], st.peer_commits)

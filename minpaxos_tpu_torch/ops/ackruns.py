@@ -7,15 +7,18 @@ per-slot votes with a per-sender difference array and a prefix sum.
 Emitter and consumer must agree on the stride (1 for MinPaxos and
 classic, R for Mencius, whose owners drive every R-th slot).
 
-On CUDA tensors ``compress_ack_runs``, ``range_vote_bits`` (coverage and
-packing fused: the [B, S, R] bool plane never reaches device memory) and
-``scatter_vote_bits`` launch ``kernels/csrc/ackruns.cu``; on the CPU they
-run the plain versions below, where masked scatters go to an explicit
-sink column instead of JAX's ``mode="drop"``.
+On CUDA tensors ``compress_ack_runs``, ``range_vote_bits`` (coverage,
+packing and the OR into the votes table fused: the [B, S, R] bool plane
+never reaches device memory) and ``scatter_vote_bits`` launch
+``kernels/csrc/ackruns.cu``; on the CPU they run the plain versions
+below, where masked scatters go to an explicit sink column instead of
+JAX's ``mode="drop"``. ``ack_families`` makes the seeded input families
+that the tests and ``chip_smoke.py`` hold the kernels to.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from minpaxos_tpu_torch import kernels as K
@@ -134,9 +137,18 @@ def pack_vote_bits(cov: torch.Tensor) -> torch.Tensor:
     return (cov.to(I32) * w).sum(-1, dtype=I32)
 
 
+def _vote_bits_plain(valid, src, inst, count, window_base, window, n_replicas,
+                     stride, into, mask):
+    bits = pack_vote_bits(range_vote_coverage(
+        valid, src, inst, count, window_base, window, n_replicas, stride))
+    if mask is not None:
+        bits = torch.where(mask, bits, 0)
+    return bits if into is None else into | bits
+
+
 @K.kernel("vote_bits")
 def _vote_bits_kernel(valid, src, inst, count, window_base, window, n_replicas,
-                      stride):
+                      stride, into=None, mask=None):
     v = K.cuda_arg(valid, torch.bool, "vote_bits valid")
     s = K.cuda_arg(src, I32, "vote_bits src")
     i = K.cuda_arg(inst, I32, "vote_bits inst")
@@ -147,10 +159,16 @@ def _vote_bits_kernel(valid, src, inst, count, window_base, window, n_replicas,
         raise ValueError("vote_bits: rows must share one [B, M] shape and "
                          "window_base be [B]")
     b, m = v.shape
+    into = None if into is None else K.cuda_arg(into, I32, "vote_bits into")
+    mask = None if mask is None else K.cuda_arg(mask, torch.bool, "vote_bits mask")
+    if any(t is not None and t.shape != (b, window) for t in (into, mask)):
+        raise ValueError(f"vote_bits: into and mask must be [{b}, {window}]")
     out = torch.empty((b, window), dtype=I32, device=v.device)
     f_ = K.fn("ackruns", "mp_range_vote_bits",
-              [K.P] * 6 + [K.L, K.I, K.I, K.I, K.I, K.P])
-    rc = f_(K.ptr(v), K.ptr(s), K.ptr(i), K.ptr(c), K.ptr(wb), K.ptr(out), b, m,
+              [K.P] * 8 + [K.L, K.I, K.I, K.I, K.I, K.P])
+    rc = f_(K.ptr(v), K.ptr(s), K.ptr(i), K.ptr(c), K.ptr(wb),
+            K.P(None) if into is None else K.ptr(into),
+            K.P(None) if mask is None else K.ptr(mask), K.ptr(out), b, m,
             int(window), int(n_replicas), int(stride), K.stream(v))
     K.check("ackruns", rc, "vote_bits")
     _vote_bits_kernel.launches += 1
@@ -158,14 +176,19 @@ def _vote_bits_kernel(valid, src, inst, count, window_base, window, n_replicas,
 
 
 def range_vote_bits(valid, src, inst, count, window_base, window: int,
-                    n_replicas: int, stride: int = 1) -> torch.Tensor:
+                    n_replicas: int, stride: int = 1, *, into=None,
+                    mask=None) -> torch.Tensor:
     """``pack_vote_bits(range_vote_coverage(...))``: int32[B, S] masks,
-    bit r set where a valid row from replica r covers the slot."""
-    if K.on_cpu(valid, src, inst, count, window_base):
-        return pack_vote_bits(range_vote_coverage(
-            valid, src, inst, count, window_base, window, n_replicas, stride))
+    bit r set where a valid row from replica r covers the slot. With
+    ``into`` (an int32[B, S] votes table) a new table ``into | bits``;
+    with ``mask`` (bool[B, S]) the bits only where it is set:
+    ``into | where(mask, bits, 0)``. ``into`` itself is not changed."""
+    extra = tuple(t for t in (into, mask) if t is not None)
+    if K.on_cpu(valid, src, inst, count, window_base, *extra):
+        return _vote_bits_plain(valid, src, inst, count, window_base, window,
+                                n_replicas, stride, into, mask)
     return _vote_bits_kernel(valid, src, inst, count, window_base, window,
-                             n_replicas, stride)
+                             n_replicas, stride, into, mask)
 
 
 def _scatter_vote_bits_plain(size, idx, src, valid, n_replicas):
@@ -204,3 +227,160 @@ def scatter_vote_bits(size: int, idx, src, valid, n_replicas: int) -> torch.Tens
     if K.on_cpu(idx, src, valid):
         return _scatter_vote_bits_plain(size, idx, src, valid, n_replicas)
     return _scatter_vote_bits_kernel(size, idx, src, valid, n_replicas)
+
+
+ACK_FAMILIES = ("random", "leader_only", "one_long_run", "no_accept",
+                "run_at_last_row", "rows_before_first_run", "full_window",
+                "ranges_past_both_window_edges")
+
+
+def ack_families(rng, b: int, m: int, s: int, r: int, stride: int,
+                 names=None) -> dict:
+    """K5 input families as numpy, drawn from the numpy generator ``rng``:
+    ``b`` batch rows (groups of ``r`` replicas) of ``m`` inbox rows, a
+    window of ``s`` slots, runs and ranges ``stride`` instances apart.
+    Each family is a dict: ``runs`` = (is_accept, src, inst, ok, ballot)
+    for ``compress_ack_runs`` (ballot None at stride 1), ``votes`` =
+    (valid, src, inst, count, window_base) for ``range_vote_bits``,
+    ``into`` an int32[b, s] votes table and ``mask`` a bool[b, s] mask
+    for its fused form. A round's run is 512 rows at stride 1 (MinPaxos's
+    p) and 64 at stride ``r`` (Mencius's p per owner), cut to ``m``.
+
+    ``random``: ``chip_smoke.py``'s compare data (ACCEPT bursts, a quarter
+    of the rows valid acks of up to 64). ``leader_only``: the main path's
+    shape: every follower row (``row % r != 0``) holds the leader's one
+    run; only the leader rows hold valid acks, a few long ranges from
+    every follower. ``one_long_run``: one run per row at stride 1; at
+    stride ``r`` every row ACCEPT with runs cut every 64 rows by a ballot
+    change alone; one long range per row. ``no_accept``: no ACCEPT row and
+    no valid ack. ``run_at_last_row``: a run through row m - 1, and a
+    range ending at the window's last slot in the last row.
+    ``rows_before_first_run``: the first rows of every row (up to half)
+    are no ACCEPT and no valid ack. ``full_window``: one run over every
+    row, and every row a valid ack covering the whole window (every
+    sender covers every slot, every phase at stride ``r``).
+    ``ranges_past_both_window_edges``: ranges that start below the window
+    and end past it, mixed with ranges over one edge. ``names`` picks
+    some families (all by default); the card tests, the CPU oracle test
+    and ``chip_smoke.py`` share them."""
+    d = stride
+    run = min(512 if d == 1 else 64, m)
+    rows = np.arange(m)[None, :]
+    i32 = np.int32
+
+    def runs_random():
+        is_acc = rng.random((b, m)) < 0.8
+        src = np.repeat(rng.integers(0, r, (b, m // 8 + 1)), 8, 1)[:, :m].astype(i32)
+        step = np.where(rng.random((b, m)) < 0.85, d, rng.integers(1, 2 * r, (b, m)))
+        inst = (np.cumsum(step, 1) + rng.integers(0, s, (b, 1))).astype(i32)
+        ok = rng.random((b, m)) < 0.9
+        bal = rng.integers(0, 2, (b, m)).astype(i32) if d > 1 else None
+        return [is_acc, src, inst, ok, bal]
+
+    def votes_random(p_valid=0.25):
+        valid = rng.random((b, m)) < p_valid
+        src = np.repeat(rng.integers(0, r, (b, m // 8 + 1)), 8, 1)[:, :m].astype(i32)
+        wb = rng.integers(0, 1 << 20, b).astype(i32)
+        inst = (wb[:, None] + rng.integers(-64, s + 64, (b, m))).astype(i32)
+        count = rng.integers(0, 64, (b, m)).astype(i32)
+        return [valid, src, inst, count, wb]
+
+    def one_run(starts, length, on):
+        """is_accept, src, inst, ok, ballot of one run per selected row."""
+        pos = rows - starts[:, None]
+        is_acc = (pos >= 0) & (pos < length[:, None]) & on[:, None]
+        inst = (rng.integers(0, 1 << 20, (b, 1)) + d * pos).astype(i32)
+        src = np.broadcast_to(rng.integers(0, r, (b, 1)), (b, m)).astype(i32)
+        bal = np.full((b, m), 17, i32) if d > 1 else None
+        return [is_acc, src, inst, np.ones((b, m), bool), bal]
+
+    def leader_only():
+        follower = np.arange(b) % r != 0
+        runs = one_run(rng.integers(0, m - run + 1, b), np.full(b, run), follower)
+        runs[1][:] = 0  # the leader, replica 0 of its group, sends the run
+        votes = votes_random(0.0)
+        k = min(3 * (r - 1), m)
+        pos = np.argsort(rng.random((b, m)), 1)[:, :k]
+        j = np.arange(k)[None, :]
+        lead = (np.arange(b) % r == 0)[:, None]
+        np.put_along_axis(votes[0], pos, np.broadcast_to(lead, (b, k)), 1)
+        np.put_along_axis(votes[1], pos, np.broadcast_to(j % max(r - 1, 1) + 1, (b, k))
+                          .astype(i32) % r, 1)
+        off = (j // max(r - 1, 1)) * run * d + rng.integers(-d, d + 1, (b, k))
+        np.put_along_axis(votes[2], pos, (votes[4][:, None] + off).astype(i32), 1)
+        np.put_along_axis(votes[3], pos, np.full((b, k), run, i32), 1)
+        return runs, votes
+
+    def one_long_run():
+        if d == 1:
+            runs = one_run(rng.integers(0, m - run + 1, b), np.full(b, run), np.ones(b, bool))
+        else:
+            runs = one_run(np.zeros(b, int), np.full(b, m), np.ones(b, bool))
+            runs[4] = np.broadcast_to(17 + 16 * ((rows // 64) % 2), (b, m)).astype(i32)
+        votes = votes_random(0.0)
+        at = rng.integers(0, m, b)
+        votes[0][np.arange(b), at] = True
+        votes[2][np.arange(b), at] = votes[4] + rng.integers(-d, s // 2, b).astype(i32)
+        votes[3][np.arange(b), at] = run
+        return runs, votes
+
+    def no_accept():
+        runs = runs_random()
+        runs[0][:] = False
+        return runs, votes_random(0.0)
+
+    def run_at_last_row():
+        runs = runs_random()
+        length = rng.integers(1, run + 1, b)
+        tail = one_run(m - length, length, np.ones(b, bool))
+        for x, y in zip(runs, tail):
+            if x is not None:
+                x[tail[0]] = y[tail[0]]
+        votes = votes_random()
+        cnt = rng.integers(1, 64, b)
+        votes[0][:, -1] = True
+        votes[3][:, -1] = cnt
+        # the range's last instance is the window's last slot of its phase
+        votes[2][:, -1] = (votes[4] + s - 1 - d * (cnt - 1)).astype(i32)
+        return runs, votes
+
+    def rows_before_first_run():
+        runs, votes = runs_random(), votes_random()
+        lead = rows < rng.integers(1, max(m // 2, 1) + 1, (b, 1))
+        runs[0][lead] = False
+        votes[0][lead] = False
+        return runs, votes
+
+    def full_window():
+        runs = one_run(np.zeros(b, int), np.full(b, m), np.ones(b, bool))
+        votes = votes_random(1.0)
+        votes[1] = np.broadcast_to(rows % r, (b, m)).astype(i32)
+        votes[2] = (votes[4][:, None] + (rows // r) % d).astype(i32)
+        votes[3] = np.full((b, m), s, i32)
+        return runs, votes
+
+    def ranges_past_both_window_edges():
+        votes = votes_random(0.5)
+        below = rng.integers(1, 3 * d + 40, (b, m))
+        both = rng.random((b, m)) < 0.5
+        votes[2] = np.where(both, votes[4][:, None] - below, votes[2]).astype(i32)
+        span = (s + d - 1) // d + 3 * d + 40
+        votes[3] = np.where(both, span + rng.integers(0, 64, (b, m)),
+                            rng.integers(s // (2 * d), span, (b, m))).astype(i32)
+        return runs_random(), votes
+
+    make = {"random": lambda: (runs_random(), votes_random()), "leader_only": leader_only,
+            "one_long_run": one_long_run, "no_accept": no_accept,
+            "run_at_last_row": run_at_last_row, "rows_before_first_run": rows_before_first_run,
+            "full_window": full_window,
+            "ranges_past_both_window_edges": ranges_past_both_window_edges}
+    out = {}
+    for name in ACK_FAMILIES:
+        if names is not None and name not in names:
+            continue
+        runs, votes = make[name]()
+        out[name] = dict(runs=tuple(None if x is None else np.ascontiguousarray(x) for x in runs),
+                         votes=tuple(np.ascontiguousarray(x) for x in votes),
+                         into=rng.integers(0, 1 << r, (b, s)).astype(i32),
+                         mask=rng.random((b, s)) < 0.5)
+    return out

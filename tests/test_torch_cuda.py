@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+from minpaxos_tpu_torch.ops.ackruns import ACK_FAMILIES
+
 pytestmark = pytest.mark.cuda
 
 torch.set_num_threads(1)
@@ -259,6 +261,45 @@ def test_ackruns_kernels(dev, stride):
     idx = torch.randint(-2, S + 3, (B, M), device=dev, dtype=torch.int32, generator=g)
     assert torch.equal(ackruns.scatter_vote_bits(S, idx, src, ok, R),
                        ackruns._scatter_vote_bits_plain(S, idx, src, ok, R))
+
+
+# K5 at each path's shape: batch rows, inbox rows, window, replicas, stride
+# (odd sizes: rows and window off every vector width, the scalar paths)
+_K5_SHAPES = {"minpaxos": (1280, 2176, 4096, 5, 1), "mencius": (1280, 2112, 4096, 5, 5),
+              "tcp": (1, 1024, 2048, 3, 1), "server_window": (4, 4096, 16384, 5, 1),
+              "odd_sizes": (10, 601, 250, 5, 1), "odd_sizes_stride5": (10, 601, 250, 5, 5)}
+
+
+@pytest.mark.parametrize("family", ACK_FAMILIES)
+@pytest.mark.parametrize("path", list(_K5_SHAPES))
+def test_ackruns_kernels_on_families(dev, path, family):
+    """K5 ack_runs and vote_bits (alone, fused with the OR into a votes
+    table, and under a mask too) on every input family of
+    ``ops/ackruns.py ack_families`` at each path's shape, launched 10
+    times each: every launch equals the twin, and ``into`` is kept."""
+    from minpaxos_tpu_torch.ops import ackruns
+
+    b, m, s, r, d = _K5_SHAPES[path]
+    fam = ackruns.ack_families(np.random.default_rng(b + m + d), b, m, s, r, d,
+                               names=(family,))[family]
+
+    def t(x):
+        return None if x is None else torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    runs = [t(x) for x in fam["runs"]]
+    votes = [t(x) for x in fam["votes"]]
+    into, mask = t(fam["into"]), t(fam["mask"])
+    want = ackruns._compress_plain(*runs, d)
+    for _ in range(10):
+        got = ackruns.compress_ack_runs(*runs[:4], ballot=runs[4], stride=d)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    keep = into.clone()
+    for i, k in ((None, None), (into, None), (into, mask)):
+        want = ackruns._vote_bits_plain(*votes, s, r, d, i, k)
+        for _ in range(10):
+            assert torch.equal(ackruns.range_vote_bits(*votes, s, r, stride=d, into=i, mask=k),
+                               want)
+    assert torch.equal(into, keep)
 
 
 _EX_SHAPES = [(64, 12), (100, 50), (4096, 320), (16384, 512)]

@@ -25,6 +25,7 @@ def _port_files():
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "wall_ab.py")
+    yield os.path.join(ROOT, "k5_ab.py")
 
 
 def _modules():
@@ -123,6 +124,8 @@ def test_kernel_wrappers_never_fall_back_for_non_cpu_tensors():
     with pytest.raises(RuntimeError):
         ackruns.range_vote_bits(b, i, mi, i, v, 8, 5, stride=5)
     with pytest.raises(RuntimeError):
+        ackruns.range_vote_bits(b, i, i, i, v, 8, 5, into=mi, mask=b)
+    with pytest.raises(RuntimeError):
         ackruns.scatter_vote_bits(8, i, mi, b, 5)
     with pytest.raises(RuntimeError):
         mencius_exec.exec_select(i, i, mu, u, b, v, v, v, 4)
@@ -130,6 +133,8 @@ def test_kernel_wrappers_never_fall_back_for_non_cpu_tensors():
         ackruns._compress_kernel(b, i, i, b, None, 1)
     with pytest.raises(RuntimeError, match="CUDA tensor"):
         ackruns._vote_bits_kernel(b, i, i, i, v, 8, 5, 5)
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        ackruns._vote_bits_kernel(b, i, i, i, v, 8, 5, 5, into=i, mask=b)
     with pytest.raises(RuntimeError, match="CUDA tensor"):
         ackruns._scatter_vote_bits_kernel(8, i, i, b, 5)
     with pytest.raises(RuntimeError, match="CUDA tensor"):
