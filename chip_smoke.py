@@ -12,7 +12,17 @@ Phases, each printing one JSON line:
               Mencius, then one TCP replica server: B = 1, 2^18-way KV
               table, K7 on the leader's outputs of a live exchange), on
               seeded inputs; integer results, compared for equality
-              (K1, K5 and K6 on 11 launches each, so a race shows).
+              (on repeated launches where named, so a race shows).
+              K4 lookup on three cases: random (tables a quarter
+              full, half the queries present, rows unsorted), and two
+              families of ops/kvstore.py lookup_families: all_miss and
+              last_way (every key in bucket 2's last way); kv_segments
+              (the KV apply's segments, one launch) on four families of
+              ops/scan.py segment_families, each timed, and the same
+              function as the apply composed it before (eager segment
+              starts and flips around three seg_scan_max launches) as
+              unfused_ms; seg_scan_max stands alone (no path launches it).
+              K1, K3, K4 lookup, K5 and K6 on 11 launches each.
               K5 ack_runs and vote_bits (fused with the OR into the
               votes table as the steps call it, under the driven-slot
               mask on the Mencius path, and alone) run on three input
@@ -56,7 +66,13 @@ Phases, each printing one JSON line:
               read back, with its last value, from all five replicas'
               KV tables against a host replay of the Threefry workload.
               Launch counts of each kernel over the run show the path
-              went through the kernels.
+              went through the kernels. Then the K4 lookup compare's
+              "path" case on the run's own tables: per table, keys drawn
+              from its LIVE keys with a few misses, sorted by key, valid
+              where no earlier row has the key, as the apply asks; it
+              is the kernels line's kv_lookup row (the random case
+              keeps its hits in each table's first ways, which stay in
+              L2, so it is no reading against device memory).
 5. mencius  — ShardedCluster(protocol="mencius") at the Mencius
               deployment (bench.py mencius_64k per group, G=256 groups x
               5 owners x W=4096, p=64 proposals per owner per round, to
@@ -89,6 +105,7 @@ Phases, each printing one JSON line:
 Then the contract lines: the kernels table, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Any failed phase
 exits non-zero. Without a card the script fails before any phase.
+
 """
 
 from __future__ import annotations
@@ -164,23 +181,30 @@ PATHS = {
 }
 # the kernels each path launches, as registered in minpaxos_tpu_torch.kernels
 KERNELS = {
-    "minpaxos": ("route", "scatter_max", "seg_scan_max", "commit_frontier",
+    "minpaxos": ("route", "scatter_max", "kv_segments", "commit_frontier",
                  "kv_lookup", "kv_insert", "ack_runs", "vote_bits",
                  "scatter_vote_bits", "propose_rows", "round_open",
                  "round_close", "slot_write"),
-    "mencius": ("route", "scatter_max", "seg_scan_max", "commit_frontier",
+    "mencius": ("route", "scatter_max", "kv_segments", "commit_frontier",
                 "kv_lookup", "kv_insert", "ack_runs", "vote_bits",
                 "scatter_vote_bits", "exec_select", "propose_rows",
                 "round_open", "round_close", "gather_rows"),
     # every replica server's step and packing (no routing: the
     # transport delivers the rows)
-    "tcp": ("scatter_max", "seg_scan_max", "commit_frontier", "kv_lookup",
+    "tcp": ("scatter_max", "kv_segments", "commit_frontier", "kv_lookup",
             "kv_insert", "ack_runs", "vote_bits", "scatter_vote_bits",
             "pack_outputs", "slot_write"),
 }
 # K5's compare families (ops/ackruns.py ack_families); the first is the
 # headline row of the kernels line
 K5_CASES = ("random", "leader_only", "one_long_run")
+# K4 lookup's compare families besides the headline's random tables
+# (ops/kvstore.py lookup_families); the resident run's own tables add
+# the "path" case after the mainpath phase
+K4_LOOKUP_CASES = ("all_miss", "last_way")
+# kv_segments' compare families (ops/scan.py segment_families); the
+# first, the apply's own sorted rows, is the headline
+SEG_CASES = ("apply_sorted", "distinct", "one_key", "put_get_delete_runs")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak
 # the published non-tensor-core rate (float32, 67 TFLOP/s); the kernels'
 # integer ALU work runs at most this fast, so ops / this is a lower bound
@@ -397,6 +421,101 @@ def exec_cases(b: int, s: int, e: int, seed: int, dev) -> dict:
             for name, arrs in fam.items()}
 
 
+def unfused_segments(s_khi, s_klo, s_valid, s_write):
+    """``ops/scan.py kv_segments``' function as the apply composed it
+    before the fusion, timed beside it as ``unfused_ms``: eager segment
+    starts from rolled keys and flips around three launches of the
+    standalone K3 scans."""
+    from minpaxos_tpu_torch.ops import scan
+
+    e = s_khi.shape[-1]
+    pos = torch.arange(e, dtype=torch.int32, device=s_khi.device).expand_as(s_khi)
+    seg_start = ((pos == 0) | (s_khi != torch.roll(s_khi, 1, 1))
+                 | (s_klo != torch.roll(s_klo, 1, 1))
+                 | (s_valid != torch.roll(s_valid, 1, 1)))
+    wpos = torch.where(s_write, pos, -1)
+    prev_w = scan.exclusive_segmented_scan_max(wpos, seg_start, -1)
+    seg_max_w = scan.segmented_scan_max(wpos, seg_start)
+    seg_end = torch.roll(seg_start, -1, 1)
+    seg_end[:, -1] = True
+    seg_total = scan.segmented_scan_max(seg_max_w.flip(1), seg_end.flip(1)).flip(1)
+    return prev_w, s_write & (pos == seg_total)
+
+
+def lookup_bytes(kv, q_hi, q_lo, q_ok, found) -> int:
+    """The bytes K4 lookup must move for these queries, counted from the
+    data: every query's key and valid flag; for a valid query, the
+    16-byte key_lo of bucket 1, and its slot and key_hi as well where a
+    way's key_lo matches; then bucket 2 the same way only when bucket 1
+    holds no live match (it never does when b2 == b1); a found query's
+    value; every query's value and found flag written."""
+    from minpaxos_tpu_torch.ops import kvstore as kvs
+
+    c, lanes = kv.val.shape[1:]
+    n = q_ok.numel()
+    pos = kvs._cand_pos(c, q_hi, q_lo)
+    st, kh, kl = kvs._probe(kv, pos)
+    lo_eq = (kl == q_lo[..., None]).view(*q_ok.shape, 2, kvs.WAYS)
+    live = (lo_eq & (st == kvs.LIVE).view_as(lo_eq)
+            & (kh == q_hi[..., None]).view_as(lo_eq)).any(-1)
+    lo_any = lo_eq.any(-1)
+    own_b2 = pos[..., kvs.WAYS] != pos[..., 0]
+    b1_bytes = 16 + 32 * lo_any[..., 0].long()
+    b2_bytes = torch.where(own_b2 & ~live[..., 0], 16 + 32 * lo_any[..., 1].long(), 0)
+    tables = int(torch.where(q_ok, b1_bytes + b2_bytes, 0).sum().item())
+    return (n * (4 + 4 + 1) + tables + int(found.sum().item()) * lanes * 4
+            + n * (lanes * 4 + 1))
+
+
+def lookup_case(kv, q_hi, q_lo, q_ok, full: bool = False) -> dict:
+    """K4 lookup on one case: held to the twin over repeated launches,
+    timed (``full``: with the host-issued and plain times too), the
+    bound counted from the data (``lookup_bytes``; integer operations:
+    two hashes and eight compares a valid query)."""
+    from minpaxos_tpu_torch.ops import kvstore as kvs
+
+    lk_k = lambda: kvs.kv_lookup_lanes(kv, q_hi, q_lo, q_ok)  # noqa: E731
+    lk_p = lambda: kvs._kv_lookup_plain(kv, q_hi, q_lo, q_ok)  # noqa: E731
+    want = lk_p()
+    n_ok = int(q_ok.sum().item())
+    return dict(err=max(max_abs_err(lk_k(), want), repeat_err(lk_k, want)),
+                **(times(lk_k, lk_p) if full else dict(ms=graph_ms(lk_k))),
+                bytes=lookup_bytes(kv, q_hi, q_lo, q_ok, want[0]), ops=n_ok * (24 + 8 * 4),
+                valid=n_ok, found=int(want[0].sum().item()))
+
+
+def lookup_path_case(kv, seed: int, e: int = P) -> dict:
+    """K4 lookup on the MinPaxos resident run's own tables (``kv``, after
+    its last dispatch), with queries as the apply makes them: per table,
+    ``e`` keys drawn with repeats from its LIVE keys, one in 32 replaced
+    by a key outside the workload's key space (a miss), sorted by key as
+    ``sort_order`` sorts them, valid where no earlier row has the key
+    (the apply's no-earlier-writer mask: every row of the path is a
+    PUT)."""
+    from minpaxos_tpu_torch.ops import kvstore as kvs
+
+    dev = kv.slot.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    b, c = kv.slot.shape
+    live = kv.slot == kvs.LIVE
+    first_live = torch.argsort((~live).to(torch.uint8), dim=1, stable=True)
+    rank = (torch.rand((b, e), device=dev, generator=g) * live.sum(1, keepdim=True)).long()
+    at = torch.gather(first_live, 1, rank.clamp(max=c - 1))
+    miss = torch.rand((b, e), device=dev, generator=g) < 1 / 32
+    q_lo = torch.where(miss, torch.randint(KEY_SPACE, 1 << 30, (b, e), device=dev,
+                                           dtype=torch.int32, generator=g),
+                       torch.gather(kv.key_lo, 1, at))
+    q_hi = torch.where(miss, 0, torch.gather(kv.key_hi, 1, at))
+    srt = kvs.sort_order(q_hi, q_lo, torch.ones_like(miss))
+    q_hi, q_lo = torch.gather(q_hi, 1, srt).contiguous(), torch.gather(q_lo, 1, srt).contiguous()
+    q_ok = torch.ones_like(miss)
+    q_ok[:, 1:] = (q_hi[:, 1:] != q_hi[:, :-1]) | (q_lo[:, 1:] != q_lo[:, :-1])
+    row = lookup_case(kv, q_hi, q_lo, q_ok, full=True)
+    return dict(row, table_load=float(live.float().mean().item()),
+                shapes=f"tables [{b},{c}] (the resident run's), rows [{b},{e}]")
+
+
 def compare_kernels(dev, seed: int, sh: Shapes) -> tuple[dict, float]:
     """Each kernel of the path vs its plain twin at the path's shapes;
     also the whole KV apply (sort + K3 + K4) on the card against the CPU
@@ -457,18 +576,52 @@ def compare_kernels(dev, seed: int, sh: Shapes) -> tuple[dict, float]:
         shapes=f"tgt/val/ok [{B},{M}] -> [{B},{S + 1}]; also signed ballots "
                f"(fill -1) -> [{B},{S + 1}], signed frontiers (fill -2^30) -> [{B},{R + 1}]")
 
-    # K3: segmented max-scans over [B, E] (the KV apply's three scans)
+    # K3: the standalone segmented max-scans over [B, E] (off the paths
+    # since the apply takes kv_segments; kept as JAX ops/scan.py's
+    # counterparts)
     vals = ri(-1, E, (B, E))
     seg = rb(0.3, (B, E))
     inc_k = lambda: scan.segmented_scan_max(vals, seg)  # noqa: E731
     exc_k = lambda: scan.exclusive_segmented_scan_max(vals, seg, -1)  # noqa: E731
-    err = max(max_abs_err(inc_k(), scan._segmented_scan_max_plain(vals, seg)),
-              max_abs_err(exc_k(), scan._exclusive_plain(vals, seg, -1)))
+    inc_want = scan._segmented_scan_max_plain(vals, seg)
+    exc_want = scan._exclusive_plain(vals, seg, -1)
+    err = max(max_abs_err(inc_k(), inc_want), repeat_err(inc_k, inc_want),
+              max_abs_err(exc_k(), exc_want), repeat_err(exc_k, exc_want))
     res["seg_scan_max"] = dict(
         err=err, **times(inc_k, lambda: scan._segmented_scan_max_plain(vals, seg)),
         bytes=B * E * (4 + 1 + 4),
         ops=B * E * 3,  # one combine (select + max + or) per element
         shapes=f"values/seg [{B},{E}] -> [{B},{E}]")
+
+    # K3: the KV apply's segments in one launch, on the families of
+    # ops/scan.py segment_families (the apply's sorted rows the
+    # headline), each held to the twin over repeated launches and timed;
+    # unfused_ms: the same function as the apply composed it before, the
+    # eager segment starts and flips around three seg_scan_max launches
+    fams = scan.segment_families(np.random.default_rng(seed), B, E, names=SEG_CASES)
+    for name in SEG_CASES:
+        arrs = tuple(torch.from_numpy(x).to(dev) for x in fams[name])
+        sg_k = lambda a=arrs: scan.kv_segments(*a)  # noqa: E731
+        sg_p = lambda a=arrs: scan._kv_segments_plain(*a)  # noqa: E731
+        want = sg_p()
+        row = dict(err=max(max_abs_err(sg_k(), want), repeat_err(sg_k, want)),
+                   **(times(sg_k, sg_p) if name == SEG_CASES[0] else dict(ms=graph_ms(sg_k))),
+                   unfused_ms=graph_ms(lambda a=arrs: unfused_segments(*a)),
+                   final_writers=int(want[1].sum().item()))
+        if name == SEG_CASES[0]:
+            res["kv_segments"] = dict(
+                row, cases={},
+                # keys, valid and write flags read once; prev_w and
+                # is_final_writer written once
+                bytes=B * E * (4 + 4 + 1 + 1) + B * E * (4 + 1),
+                # per element: the neighbour compare (3 compares, 2 ors),
+                # the forward and the backward step (3 each)
+                ops=B * E * 11,
+                shapes=f"sorted key_hi/key_lo/valid/write [{B},{E}] -> prev_w, "
+                       f"is_final_writer [{B},{E}]")
+        else:
+            res["kv_segments"]["cases"][name] = row
+            res["kv_segments"]["err"] = max(res["kv_segments"]["err"], row["err"])
 
     # K3: commit frontier over [B, S] (a committed prefix, then a gap)
     start = ri(0, S // 2, (B,))
@@ -527,15 +680,19 @@ def compare_kernels(dev, seed: int, sh: Shapes) -> tuple[dict, float]:
     q_lo = torch.where(rb(0.5, (B, E)), kv.key_lo[:, :E], ri(0, 1 << 30, (B, E)))
     q_hi = torch.zeros_like(q_lo)
     q_ok = rb(0.9, (B, E))
-    lk_k = lambda: kvs.kv_lookup_lanes(kv, q_hi, q_lo, q_ok)  # noqa: E731
-    lk_p = lambda: kvs._kv_lookup_plain(kv, q_hi, q_lo, q_ok)  # noqa: E731
-    found, _ = lk_p()
     res["kv_lookup"] = dict(
-        err=max_abs_err(lk_k(), lk_p()), **times(lk_k, lk_p),
-        bytes=B * E * (4 + 4 + 1) + int(q_ok.sum().item()) * 8 * 12
-        + int(found.sum().item()) * 8 + B * E * (8 + 1),
-        ops=int(q_ok.sum().item()) * (24 + 8 * 4),  # two hashes, 8 compares
+        lookup_case(kv, q_hi, q_lo, q_ok, full=True), cases={},
         shapes=f"tables [{B},{C}], rows [{B},{E}]")
+    # and the families of ops/kvstore.py lookup_families: no key present;
+    # every key in bucket 2's last way, the ways before it LIVE (the
+    # longest walk in probe order)
+    for name, (tabs, qs) in kvs.lookup_families(np.random.default_rng(seed), B, E, C,
+                                                names=K4_LOOKUP_CASES).items():
+        kv_f = kvs.KVState(*(torch.from_numpy(x).to(dev) for x in tabs), kv.dropped)
+        row = lookup_case(kv_f, *(torch.from_numpy(x).to(dev) for x in qs))
+        res["kv_lookup"]["cases"][name] = row
+        res["kv_lookup"]["err"] = max(res["kv_lookup"]["err"], row["err"])
+        del kv_f
 
     # insert: distinct keys per row (final writers), some present, some deletes
     ins_lo = torch.unique(torch.cat([prefill_keys(3)[:E // 2], ri(0, 1 << 30, (E,))]))
@@ -1184,6 +1341,8 @@ REPLACES = {
                      "minpaxos_tpu/ops/scan.py:21"),
     "commit_frontier": ("minpaxos_tpu_torch/kernels/csrc/scan.cu",
                         "minpaxos_tpu/ops/scan.py:50"),
+    "kv_segments": ("minpaxos_tpu_torch/kernels/csrc/scan.cu",
+                    "minpaxos_tpu/ops/kvstore.py:276"),
     "kv_lookup": ("minpaxos_tpu_torch/kernels/csrc/kvstore.cu",
                   "minpaxos_tpu/ops/kvstore.py:111"),
     "kv_insert": ("minpaxos_tpu_torch/kernels/csrc/kvstore.cu",
@@ -1432,9 +1591,18 @@ def main_path(dev, seed: int, dispatches: int, profile_dir: str | None = None) -
     missing = [k for k in KERNELS["minpaxos"] if not launches.get(k)]
     if missing:
         fail("mainpath", f"kernels never launched on the main path: {missing}")
+    # K4 lookup on the run's own tables: the compare case that looks
+    # like the path
+    path_case = lookup_path_case(sc.ss.states.kv, seed)
+    emit(dict(phase="compare", path="minpaxos_resident_tables", card=nvidia_smi_line(),
+              kernels={"kv_lookup": dict(cases={"path": path_case},
+                                         equal=path_case["err"] == 0)}))
+    if path_case["err"]:
+        fail("compare", f"kv_lookup disagrees with its twin on the resident run's tables: "
+                        f"{path_case['err']}")
     if profile_dir:
         emit(profile_rounds(sc, 4, P, profile_dir, "minpaxos"))
-    return rec
+    return dict(rec, kv_lookup_path=path_case)
 
 
 def mencius_path(dev, seed: int, dispatches: int, profile_dir: str | None = None) -> dict:
@@ -1971,6 +2139,10 @@ def main() -> None:
         for name in names:
             src, repl = REPLACES[name]
             v = res[path][name]
+            if (path, name) == ("minpaxos", "kv_lookup"):
+                # K4 lookup's headline: the case on the run's own tables
+                v = dict(recs[path]["kv_lookup_path"], library_ms=None,
+                         err=max(v["err"], recs[path]["kv_lookup_path"]["err"]))
             t_bytes = 1e3 * v["bytes"] / HBM_BYTES_PER_S
             t_ops = 1e3 * v["ops"] / ALU_OPS_PER_S
             table.append(dict(

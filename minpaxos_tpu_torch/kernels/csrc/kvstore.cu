@@ -6,15 +6,30 @@
 // Each key has two candidate buckets of WAYS ways.
 //
 // Bound: bytes. A probe reads its 2 x WAYS candidate entries (12 B
-// each) and, when found, one value. An insert needs less: both buckets
-// of slot, key_lo of a bucket with a LIVE way and key_hi of a bucket
-// whose key_lo matched; then a placed row writes its whole entry, a
-// matched row only its value (and its slot on a delete), a delete of an
-// absent key nothing. The claim rounds are a few hundred integer ops
-// per row.
+// each) and, when found, one value. The tables (840 MB at the MinPaxos
+// deployment) do not fit the 50 MB L2, so each probe's loads go to
+// device memory a sector at a time: the lookup is held back by the
+// sectors it touches, not by the bytes it needs. An insert needs less:
+// both buckets of slot, key_lo of a bucket with a LIVE way and key_hi
+// of a bucket whose key_lo matched; then a placed row writes its whole
+// entry, a matched row only its value (and its slot on a delete), a
+// delete of an absent key nothing. The claim rounds are a few hundred
+// integer ops per row.
 // Design:
-// * lookup: one thread per query row, probing the eight ways in order
-//   (the first live match wins, as argmax does in the JAX engine).
+// * lookup: one thread per query row. Each access is a 16-byte bucket
+//   load (a bucket is 4 ints; a table that is not 16-byte aligned is
+//   refused) into a sector of its own, so the time goes with the
+//   sectors a query touches, not with its bytes. Bucket 1 first: its
+//   key_lo, then, only where a way's key_lo matched, its slot and key_hi
+//   together with the value of the first match (one more trip only when
+//   key_hi or an EMPTY slot rejects that match); bucket 2 the same way
+//   only when bucket 1 holds no live match, so the first live match in
+//   probe order wins (bucket 1's ways, then bucket 2's, as argmax does
+//   in the JAX engine). A hit in bucket 1 touches 4 sectors in 2 round
+//   trips, a hit in bucket 2 5 in 3, a miss 2 in 2, where loading the
+//   six bucket loads first touches 7 and walking the ways in order takes
+//   up to 24 dependent loads. Nothing is read twice, so the loads are
+//   read-only and allocate no L1 line.
 // * insert: one block per batch row, so every claim contest of that
 //   row's table runs inside the block; one row per thread up to 1,024
 //   rows (2 or 4 above): a template, so a row's state stays in
@@ -91,6 +106,34 @@ __device__ __forceinline__ void cand_buckets(int C, int hi, int lo, int& b1,
   }
 }
 
+// read-only loads that allocate no L1 line (nothing is read twice)
+__device__ __forceinline__ int4 ld_na4(const int* p) {
+  int4 r;
+  asm("ld.global.nc.L1::no_allocate.v4.s32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+      : "l"(p));
+  return r;
+}
+
+__device__ __forceinline__ int2 ld_na2(const int* p) {
+  int2 r;
+  asm("ld.global.nc.L1::no_allocate.v2.s32 {%0, %1}, [%2];"
+      : "=r"(r.x), "=r"(r.y)
+      : "l"(p));
+  return r;
+}
+
+__device__ __forceinline__ int ld_na(const int* p) {
+  int r;
+  asm("ld.global.nc.L1::no_allocate.s32 %0, [%1];" : "=r"(r) : "l"(p));
+  return r;
+}
+
+// bit w: way w of a bucket's 4 ints equals k
+__device__ __forceinline__ int ways_eq(int4 x, int k) {
+  return (x.x == k) | (x.y == k) << 1 | (x.z == k) << 2 | (x.w == k) << 3;
+}
+
 __global__ void mp_kv_lookup_k(const int* __restrict__ key_hi,
                                const int* __restrict__ key_lo,
                                const int* __restrict__ val,
@@ -104,24 +147,39 @@ __global__ void mp_kv_lookup_k(const int* __restrict__ key_hi,
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const long long tb = (i / E) * (long long)C;
-  const int hi = qhi[i], lo = qlo[i];
   int p = -1;
+  int2 v = make_int2(0, 0);
   if (valid[i]) {
+    const int hi = qhi[i], lo = qlo[i];
     int b1, b2;
     cand_buckets(C, hi, lo, b1, b2);
-#pragma unroll
-    for (int w = 0; w < 2 * WAYS; ++w) {
-      const int pos = (w < WAYS ? b1 : b2) * WAYS + (w & (WAYS - 1));
-      if (slot[tb + pos] == LIVE && key_hi[tb + pos] == hi &&
-          key_lo[tb + pos] == lo) {
-        p = pos;
-        break;
-      }
+    // bucket 1, then bucket 2 only when bucket 1 holds no live match
+    for (int q = 0; q < 2 && p < 0; ++q) {
+      const int bk = q ? b2 : b1;
+      if (q && b2 == b1) break;
+      const long long o = tb + bk * WAYS;
+      // the bucket's key_lo
+      const int c = ways_eq(ld_na4(key_lo + o), lo);
+      if (!c) continue;
+      // then its slot and key_hi and the value of its first key_lo
+      // match, in flight together
+      const int p0 = bk * WAYS + __ffs(c) - 1;
+      const int4 s = ld_na4(slot + o), h = ld_na4(key_hi + o);
+      if (L == 2) v = ld_na2(val + (tb + p0) * 2);
+      const int m = c & ways_eq(s, LIVE) & ways_eq(h, hi);
+      if (m) p = bk * WAYS + __ffs(m) - 1;
+      // one more trip only when that first match was not the key
+      if (L == 2 && p >= 0 && p != p0) v = ld_na2(val + (tb + p) * 2);
     }
   }
   found[i] = p >= 0;
-  for (int l = 0; l < L; ++l)
-    out[i * L + l] = p >= 0 ? val[(tb + p) * L + l] : 0;
+  if (L == 2) {
+    // 8-byte aligned: mp_kv_lookup refuses a value table that is not
+    *reinterpret_cast<int2*>(out + i * 2) = p >= 0 ? v : make_int2(0, 0);
+  } else {
+    for (int l = 0; l < L; ++l)
+      out[i * L + l] = p >= 0 ? ld_na(val + (tb + p) * L + l) : 0;
+  }
 }
 
 MP_EXPORT int mp_kv_lookup(const int* key_hi, const int* key_lo,
@@ -130,6 +188,10 @@ MP_EXPORT int mp_kv_lookup(const int* key_hi, const int* key_lo,
                            int* out, unsigned char* found, long long rows,
                            int E, int C, int L, cudaStream_t s) {
   if (C < WAYS || (C & (C - 1))) return MP_ERR_SHAPE;
+  // a bucket in one 16-byte load; a 2-lane value in one 8-byte load
+  if (((uintptr_t)key_hi | (uintptr_t)key_lo | (uintptr_t)slot) % 16 ||
+      (L == 2 && ((uintptr_t)val | (uintptr_t)out) % 8))
+    return MP_ERR_SHAPE;
   const long long n = rows * (long long)E;
   if (n > 0)
     mp_kv_lookup_k<<<mp_grid(n, 256), 256, 0, s>>>(

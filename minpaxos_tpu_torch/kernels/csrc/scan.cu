@@ -1,16 +1,34 @@
-// K3: segmented max-scans and the commit-frontier prefix-AND.
+// K3: segmented max-scans, the KV apply's segment work, and the
+// commit-frontier prefix-AND.
 //
 // Replaces ops/scan.py: segmented_scan_max and
 // exclusive_segmented_scan_max (a lax.associative_scan over the
-// segmented-max monoid, used three times per KV apply on [B, E]) and
-// commit_frontier (a prefix-AND over the [B, S] committed window).
+// segmented-max monoid) and commit_frontier (a prefix-AND over the
+// [B, S] committed window); and, fused in one launch, the segment work
+// of ops/kvstore.py kv_apply_batch_lanes (:270-308): the segment starts
+// from rolled keys, the exclusive scan for each row's last earlier
+// write, and the reversed scan for each key's final writer.
 //
 // Bound: bytes; a scan reads each value and flag once and writes one
 // value, and the frontier needs only the committed prefix of each row.
-// Design: one block per batch row. The segmented scan is a warp-shuffle
-// scan of (flag, value) pairs, warp totals combined in shared memory,
-// and a carry across chunks of the row; the frontier is a block-wide
-// min over the first uncommitted index at or after the start.
+// At the apply's shapes (E <= 512 a row) every launch is near its
+// launch floor, so the design cuts launches and barriers.
+// Design:
+// * seg_scan_max: one block per batch row, a warp-shuffle scan of
+//   (flag, value) pairs, warp totals combined in shared memory, and a
+//   carry across chunks of the row.
+// * kv_segments: one warp per batch row, no shared memory and no
+//   barrier. Each lane holds a run of V consecutive elements (V = 4, 8
+//   or 16, the least with 32 V >= E; longer rows loop over chunks of
+//   32 V with a carry), read with 16-byte loads where the run is whole
+//   and aligned. A run becomes two bit masks, segment starts and
+//   writes; the forward pass (last write before each element) and the
+//   backward pass (a later write in the element's segment) are each a
+//   serial pass over the lane's bits and one shuffle scan across the
+//   lanes. Positions only grow along a row, so a segment's max write
+//   position is its last write.
+// * commit_frontier: a block-wide min over the first uncommitted index
+//   at or after the start.
 #include "common.cuh"
 
 struct SP {
@@ -92,6 +110,267 @@ MP_EXPORT int mp_seg_scan_max(const int* vals, const unsigned char* seg,
   if (rows > 0 && n > 0)
     mp_seg_scan_k<<<(int)rows, SCAN_NT, 0, s>>>(vals, seg, out, n, exclusive,
                                                 identity);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------- kv_segments
+
+constexpr int SEGS_WARPS = 4;  // batch rows (warps) per block
+
+// V ints of a row from element i, n of them in range: one 16-byte load
+// per 4 when the run is whole and aligned, else one at a time
+template <int V>
+__device__ __forceinline__ void seg_load_ints(const int* p, int n, int (&o)[V]) {
+  if (n >= V && ((uintptr_t)p & 15) == 0) {
+#pragma unroll
+    for (int k = 0; k < V; k += 4) {
+      const int4 x = *reinterpret_cast<const int4*>(p + k);
+      o[k] = x.x;
+      o[k + 1] = x.y;
+      o[k + 2] = x.z;
+      o[k + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) o[k] = k < n ? p[k] : 0;
+  }
+}
+
+// bit k: byte k of V bool bytes is set (0 past n); one 4-, 8- or
+// 16-byte load when the run is whole and aligned
+template <int V>
+__device__ __forceinline__ unsigned seg_load_bits(const unsigned char* p, int n) {
+  unsigned w[V / 4];
+  if (n >= V && ((uintptr_t)p % V) == 0) {
+    if constexpr (V == 4) {
+      w[0] = *reinterpret_cast<const unsigned*>(p);
+    } else if constexpr (V == 8) {
+      const uint2 x = *reinterpret_cast<const uint2*>(p);
+      w[0] = x.x;
+      w[1] = x.y;
+    } else {
+#pragma unroll
+      for (int q = 0; q < V / 4; q += 4) {
+        const uint4 x = *reinterpret_cast<const uint4*>(p + 4 * q);
+        w[q] = x.x;
+        w[q + 1] = x.y;
+        w[q + 2] = x.z;
+        w[q + 3] = x.w;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < V / 4; ++q) {
+      unsigned x = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (4 * q + k < n) x |= (unsigned)p[4 * q + k] << (8 * k);
+      w[q] = x;
+    }
+  }
+  unsigned bits = 0;
+#pragma unroll
+  for (int q = 0; q < V / 4; ++q)
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      bits |= (unsigned)(((w[q] >> (8 * k)) & 0xFFu) != 0) << (4 * q + k);
+  return bits;
+}
+
+// One chunk of a row (elements [base, base + 32 V)), lane ``lane``'s run
+// from i0 = base + lane * V: ``s`` bit k = element i0 + k starts a
+// segment (key_hi, key_lo or valid differs from the element before, or
+// it is element 0; elements past E each start one), ``w`` bit k = it
+// writes. ``nxt`` (lane 31 only) = the element after the chunk starts a
+// segment.
+template <int V>
+__device__ __forceinline__ void seg_run(const int* khi, const int* klo,
+                                        const unsigned char* ok,
+                                        const unsigned char* wr, int E, int base,
+                                        int lane, unsigned& s, unsigned& w,
+                                        unsigned& nxt) {
+  const int i0 = base + lane * V;
+  const int n = min(max(E - i0, 0), V);
+  int hi[V], lo[V];
+  seg_load_ints<V>(khi + i0, n, hi);
+  seg_load_ints<V>(klo + i0, n, lo);
+  const unsigned okb = seg_load_bits<V>(ok + i0, n);
+  w = seg_load_bits<V>(wr + i0, n);
+  // the element before the run: the lane before's last, or for lane 0
+  // the element before the chunk
+  int phi = __shfl_up_sync(0xffffffffu, hi[V - 1], 1);
+  int plo = __shfl_up_sync(0xffffffffu, lo[V - 1], 1);
+  unsigned pok = __shfl_up_sync(0xffffffffu, okb >> (V - 1), 1);
+  if (lane == 0 && i0 > 0) {
+    phi = khi[i0 - 1];
+    plo = klo[i0 - 1];
+    pok = ok[i0 - 1] != 0;
+  }
+  s = i0 == 0 || phi != hi[0] || plo != lo[0] || pok != (okb & 1u);
+#pragma unroll
+  for (int k = 1; k < V; ++k)
+    s |= (unsigned)(hi[k] != hi[k - 1] || lo[k] != lo[k - 1] ||
+                    ((okb >> k) & 1u) != ((okb >> (k - 1)) & 1u)) << k;
+  if (n < V) s |= ((1u << V) - 1u) & (~0u << n);  // past E
+  nxt = 1u;
+  const int j = base + 32 * V;  // the element after the chunk
+  if (lane == 31 && j < E)
+    nxt = khi[j] != hi[V - 1] || klo[j] != lo[V - 1] ||
+          (unsigned)(ok[j] != 0) != ((okb >> (V - 1)) & 1u);
+}
+
+// Forward, one chunk: prev_w of the lane's run. ``carry``: the last
+// write of the open segment before the chunk (-1: none).
+template <int V>
+__device__ __forceinline__ void seg_forward(unsigned s, unsigned w, int i0,
+                                            int lane, int E, int* prev,
+                                            int& carry) {
+  // the lane's total: it starts a segment; the last write at or after
+  // its last start (the whole run when it has none)
+  const unsigned wm = s ? w & ~((1u << (31 - __clz(s))) - 1u) : w;
+  int f = s != 0, v = wm ? i0 + 31 - __clz(wm) : -1;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int of = __shfl_up_sync(0xffffffffu, f, d);
+    const int ov = __shfl_up_sync(0xffffffffu, v, d);
+    if (lane >= d) {
+      if (!f) v = max(ov, v);
+      f |= of;
+    }
+  }
+  int ef = __shfl_up_sync(0xffffffffu, f, 1);
+  int ev = __shfl_up_sync(0xffffffffu, v, 1);
+  if (lane == 0) ef = 0, ev = -1;
+  int cur = ef ? ev : max(carry, ev);
+  int o[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    if ((s >> k) & 1u) cur = -1;
+    o[k] = cur;
+    if ((w >> k) & 1u) cur = i0 + k;
+  }
+  const int n = min(max(E - i0, 0), V);
+  int* p = prev + i0;
+  if (n == V && ((uintptr_t)p & 15) == 0) {
+#pragma unroll
+    for (int k = 0; k < V; k += 4)
+      *reinterpret_cast<int4*>(p + k) = make_int4(o[k], o[k + 1], o[k + 2], o[k + 3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      if (k < n) p[k] = o[k];
+  }
+  const int tf = __shfl_sync(0xffffffffu, f, 31);
+  const int tv = __shfl_sync(0xffffffffu, v, 31);
+  carry = tf ? tv : max(carry, tv);
+}
+
+// Backward, one chunk (chunks right to left): is_final_writer of the
+// lane's run. ``carry``: the open segment after the chunk has a write.
+template <int V>
+__device__ __forceinline__ void seg_backward(unsigned s, unsigned w,
+                                             unsigned nxt, int i0, int lane,
+                                             int E, unsigned char* fin,
+                                             int& carry) {
+  // end bit k: element i0 + k is its segment's last
+  const unsigned ns = __shfl_down_sync(0xffffffffu, s & 1u, 1);
+  const unsigned e = (s >> 1) | ((lane == 31 ? nxt : ns) << (V - 1));
+  // the lane's total, seen from the left: it ends a segment; a write at
+  // or before its first end (the whole run when it has none)
+  const unsigned wm = e ? w & ((2u << (__ffs(e) - 1)) - 1u) : w;
+  int f = e != 0, v = wm != 0;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int of = __shfl_down_sync(0xffffffffu, f, d);
+    const int ov = __shfl_down_sync(0xffffffffu, v, d);
+    if (lane + d < 32) {
+      if (!f) v |= ov;
+      f |= of;
+    }
+  }
+  int ef = __shfl_down_sync(0xffffffffu, f, 1);
+  int ev = __shfl_down_sync(0xffffffffu, v, 1);
+  if (lane == 31) ef = 0, ev = 0;
+  int later = ef ? ev : (carry | ev);
+  unsigned fb = 0;
+#pragma unroll
+  for (int k = V - 1; k >= 0; --k) {
+    if ((e >> k) & 1u) later = 0;
+    const unsigned wk = (w >> k) & 1u;
+    fb |= (wk & (unsigned)!later) << k;
+    later |= (int)wk;
+  }
+  const int n = min(max(E - i0, 0), V);
+  unsigned char* p = fin + i0;
+  if (n == V && ((uintptr_t)p % V) == 0) {
+    unsigned q[V / 4];
+#pragma unroll
+    for (int a = 0; a < V / 4; ++a) {
+      const unsigned b = (fb >> (4 * a)) & 0xFu;
+      q[a] = (b & 1u) | ((b >> 1) & 1u) << 8 | ((b >> 2) & 1u) << 16 | (b >> 3) << 24;
+    }
+    if constexpr (V == 4) {
+      *reinterpret_cast<unsigned*>(p) = q[0];
+    } else if constexpr (V == 8) {
+      *reinterpret_cast<uint2*>(p) = make_uint2(q[0], q[1]);
+    } else {
+#pragma unroll
+      for (int a = 0; a < V / 4; a += 4)
+        *reinterpret_cast<uint4*>(p + 4 * a) = make_uint4(q[a], q[a + 1], q[a + 2], q[a + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      if (k < n) p[k] = (fb >> k) & 1u;
+  }
+  const int tf = __shfl_sync(0xffffffffu, f, 0);
+  const int tv = __shfl_sync(0xffffffffu, v, 0);
+  carry = tf ? tv : (carry | tv);
+}
+
+template <int V>
+__global__ void __launch_bounds__(32 * SEGS_WARPS)
+mp_kv_segments_k(const int* __restrict__ khi, const int* __restrict__ klo,
+                 const unsigned char* __restrict__ ok,
+                 const unsigned char* __restrict__ wr, int* __restrict__ prev,
+                 unsigned char* __restrict__ fin, long long rows, int E) {
+  const long long row = (long long)blockIdx.x * SEGS_WARPS + (threadIdx.x >> 5);
+  if (row >= rows) return;  // a whole warp leaves together
+  const int lane = threadIdx.x & 31;
+  const long long rb = row * E;
+  khi += rb;
+  klo += rb;
+  ok += rb;
+  wr += rb;
+  prev += rb;
+  fin += rb;
+  const int chunk = 32 * V, nch = (E + chunk - 1) / chunk;
+  unsigned s, w, nxt;
+  int carry = -1;
+  for (int c = 0; c < nch; ++c) {
+    seg_run<V>(khi, klo, ok, wr, E, c * chunk, lane, s, w, nxt);
+    seg_forward<V>(s, w, c * chunk + lane * V, lane, E, prev, carry);
+  }
+  // the last chunk's bits are still held; earlier chunks are read again
+  carry = 0;
+  for (int c = nch - 1; c >= 0; --c) {
+    if (c < nch - 1) seg_run<V>(khi, klo, ok, wr, E, c * chunk, lane, s, w, nxt);
+    seg_backward<V>(s, w, nxt, c * chunk + lane * V, lane, E, fin, carry);
+  }
+}
+
+MP_EXPORT int mp_kv_segments(const int* khi, const int* klo,
+                             const unsigned char* ok, const unsigned char* wr,
+                             int* prev, unsigned char* fin, long long rows,
+                             int E, cudaStream_t s) {
+  if (rows <= 0 || E <= 0) return (int)cudaGetLastError();
+  const int grid = (int)((rows + SEGS_WARPS - 1) / SEGS_WARPS);
+  if (E <= 32 * 4)
+    mp_kv_segments_k<4><<<grid, 32 * SEGS_WARPS, 0, s>>>(khi, klo, ok, wr, prev, fin, rows, E);
+  else if (E <= 32 * 8)
+    mp_kv_segments_k<8><<<grid, 32 * SEGS_WARPS, 0, s>>>(khi, klo, ok, wr, prev, fin, rows, E);
+  else
+    mp_kv_segments_k<16><<<grid, 32 * SEGS_WARPS, 0, s>>>(khi, klo, ok, wr, prev, fin, rows, E);
   return (int)cudaGetLastError();
 }
 

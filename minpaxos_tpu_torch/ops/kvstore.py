@@ -8,9 +8,11 @@ earlier PUT/DELETE to its key in the batch, else the table; the table
 ends as if the commands ran one by one.
 
 Mechanics, per replica row: a stable sort by (key, slot); "last write
-before me" is an exclusive segmented max-scan (ops/scan.py, K3); rows
-with no earlier writer probe the table (``kv_lookup_lanes``, K4); the
-final writer per key is inserted (``kv_insert_unique``, K4).
+before me" and "the final writer of my key" come from one pass over the
+sorted rows' segments (``ops/scan.py kv_segments``, K3: the JAX engine's
+exclusive and reversed segmented max-scans); rows with no earlier writer
+probe the table (``kv_lookup_lanes``, K4); the final writer per key is
+inserted (``kv_insert_unique``, K4).
 
 One departure from the JAX engine: a row whose two candidate buckets
 are both full is not given up at once. A third pass (``_displace``)
@@ -31,14 +33,12 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from minpaxos_tpu_torch import kernels as K
 from minpaxos_tpu_torch.ops.packed import pair_hash
-from minpaxos_tpu_torch.ops.scan import (
-    exclusive_segmented_scan_max,
-    segmented_scan_max,
-)
+from minpaxos_tpu_torch.ops.scan import kv_segments
 from minpaxos_tpu_torch.ops.util import I32, cumsum32, first_true
 from minpaxos_tpu_torch.wire.messages import Op
 
@@ -181,6 +181,106 @@ def kv_lookup_lanes(kv: KVState, k_hi: torch.Tensor, k_lo: torch.Tensor,
     if K.on_cpu(kv.key_hi, k_hi, k_lo, valid):
         return _kv_lookup_plain(kv, k_hi, k_lo, valid)
     return _kv_lookup_kernel(kv, k_hi, k_lo, valid)
+
+
+LOOKUP_FAMILIES = ("quarter_full", "half_full", "all_hit", "all_miss", "each_way",
+                   "last_way", "key_hi", "invalid_rows", "sorted")
+
+
+def lookup_families(rng, b: int, e: int, c: int, lanes: int = VAL_LANES,
+                    names=None) -> dict:
+    """``kv_lookup_lanes`` input families as numpy, drawn from the numpy
+    generator ``rng``: each is (tables, queries), tables = (key_hi,
+    key_lo, val, slot) of [b, c] ([b, c, lanes] for val) and queries =
+    (key_hi, key_lo, valid) of [b, e]. A quarter (or half) of the ways
+    are LIVE under filler keys, all negative (no query key is); a
+    query's key is written into one of its 2 x WAYS candidate ways, the
+    ways before it in probe order LIVE under other keys that share its
+    key_hi.
+
+    ``quarter_full`` / ``half_full``: tables a quarter / half LIVE, half
+    the queries present at a random way, a tenth present under an EMPTY
+    slot (a deleted key), 90% valid. ``all_hit``: every query present;
+    ``all_miss``: none, half the ways LIVE. ``each_way``: query i at way
+    i % 8. ``last_way``: every query in bucket 2's last way, the longest
+    walk in probe order. ``key_hi``: key_hi not 0, the ways before a
+    query's holding its key_lo under another key_hi, and absent queries
+    whose key_lo is LIVE under another key_hi. ``invalid_rows``: every
+    query present, half of them invalid. ``sorted``: the apply's rows:
+    keys drawn with repeats from 2e keys, 19 in 20 of them present, rows
+    sorted by key as ``sort_order`` sorts them and valid only where no
+    earlier row has the key (every row a write). ``names`` picks some
+    families (all by default); the CPU oracle test, the card tests and
+    ``chip_smoke.py`` share them."""
+    i32 = np.int32
+    out = {}
+    for name in names or LOOKUP_FAMILIES:
+        fill = 0.5 if name in ("half_full", "all_miss", "last_way") else 0.25
+        slot = (rng.random((b, c)) < fill).astype(i32)
+        t_hi = np.zeros((b, c), i32)
+        t_lo = rng.integers(-(1 << 30), 0, (b, c)).astype(i32)
+        val = rng.integers(-(1 << 30), 1 << 30, (b, c, lanes)).astype(i32)
+        q_hi = np.zeros((b, e), i32)
+        q_lo = rng.integers(0, 1 << 30, (b, e)).astype(i32)
+        valid = np.ones((b, e), bool)
+        if name == "key_hi":
+            q_hi = rng.integers(1, 1 << 30, (b, e)).astype(i32)
+        if name == "sorted":
+            q_lo = rng.integers(0, 2 * e, (b, e)).astype(i32)
+        b1, b2 = (x.numpy() for x in _buckets(c, torch.from_numpy(q_hi),
+                                               torch.from_numpy(q_lo)))
+        way = rng.integers(0, 2 * WAYS, (b, e))
+        if name == "each_way":
+            way = np.broadcast_to(np.arange(e) % (2 * WAYS), (b, e))
+        elif name == "last_way":
+            way = np.full((b, e), 2 * WAYS - 1)
+        present = np.ones((b, e), bool)
+        if name in ("quarter_full", "half_full"):
+            u = rng.random((b, e))
+            present, deleted = u < 0.5, (u >= 0.5) & (u < 0.6)
+            valid = rng.random((b, e)) < 0.9
+        elif name == "all_miss":
+            present = np.zeros((b, e), bool)
+        elif name == "key_hi":
+            present = rng.random((b, e)) < 0.7
+        elif name == "invalid_rows":
+            valid = rng.random((b, e)) < 0.5
+        elif name == "sorted":  # a key's way and presence follow the key
+            way, present = q_lo % (2 * WAYS), q_lo % 20 != 0
+
+        def at(w):
+            return np.where(w < WAYS, b1, b2) * WAYS + w % WAYS
+
+        # the ways before each placed key: LIVE under another key with
+        # the query's key_hi (its key_lo, another key_hi, for key_hi)
+        for w in range(2 * WAYS - 1):
+            before = present & (way > w)
+            r, q = np.nonzero(before)
+            p = at(w)[r, q]
+            slot[r, p] = LIVE
+            if name == "key_hi":
+                t_hi[r, p] = q_hi[r, q] ^ 1
+                t_lo[r, p] = q_lo[r, q]
+            else:
+                t_hi[r, p] = q_hi[r, q]
+        if name == "key_hi":  # absent keys whose key_lo is LIVE elsewhere
+            r, q = np.nonzero(~present)
+            p = at(way)[r, q]
+            slot[r, p], t_hi[r, p], t_lo[r, p] = LIVE, q_hi[r, q] + 1, q_lo[r, q]
+        r, q = np.nonzero(present)
+        p = at(way)[r, q]
+        slot[r, p], t_hi[r, p], t_lo[r, p] = LIVE, q_hi[r, q], q_lo[r, q]
+        if name in ("quarter_full", "half_full"):
+            r, q = np.nonzero(deleted)
+            p = at(way)[r, q]
+            slot[r, p], t_hi[r, p], t_lo[r, p] = EMPTY, q_hi[r, q], q_lo[r, q]
+        if name == "sorted":
+            order = sort_order(torch.from_numpy(q_hi), torch.from_numpy(q_lo),
+                               torch.ones((b, e), dtype=torch.bool)).numpy()
+            q_hi, q_lo = (np.take_along_axis(x, order, 1) for x in (q_hi, q_lo))
+            valid[:, 1:] = (q_hi[:, 1:] != q_hi[:, :-1]) | (q_lo[:, 1:] != q_lo[:, :-1])
+        out[name] = ((t_hi, t_lo, val, slot), (q_hi, q_lo, valid))
+    return out
 
 
 def _kv_insert_plain(kv: KVState, k_hi, k_lo, v, delete, valid) -> KVState:
@@ -402,13 +502,7 @@ def kv_apply_batch_lanes(kv: KVState, op, k_hi, k_lo, v, valid):
     lanes = v.shape[2]
     s_v = torch.gather(v, 1, order[..., None].expand(b, e, lanes))
 
-    pos = torch.arange(e, dtype=I32, device=op.device).expand(b, e)
-    seg_start = ((pos == 0) | (s_khi != torch.roll(s_khi, 1, 1))
-                 | (s_klo != torch.roll(s_klo, 1, 1))
-                 | (s_valid != torch.roll(s_valid, 1, 1)))
-
-    wpos = torch.where(s_write, pos, -1)
-    prev_w = exclusive_segmented_scan_max(wpos, seg_start, -1)
+    prev_w, is_final_writer = kv_segments(s_khi, s_klo, s_valid, s_write)
     has_prev = prev_w >= 0
     pw = torch.where(has_prev, prev_w, 0).long()
     prev_present = has_prev & torch.gather(s_put, 1, pw)
@@ -425,12 +519,6 @@ def kv_apply_batch_lanes(kv: KVState, op, k_hi, k_lo, v, valid):
 
     out = torch.empty_like(v).scatter_(1, order[..., None].expand(b, e, lanes), out_s)
     found = torch.empty_like(valid).scatter_(1, order, found_s)
-
-    seg_max_w = segmented_scan_max(wpos, seg_start)
-    seg_end = torch.roll(seg_start, -1, 1)
-    seg_end[:, -1] = True
-    seg_total = segmented_scan_max(seg_max_w.flip(1), seg_end.flip(1)).flip(1)
-    is_final_writer = s_write & (pos == seg_total)
 
     kv = kv_insert_unique(kv, s_khi, s_klo, s_v, delete=s_del,
                           valid=is_final_writer)

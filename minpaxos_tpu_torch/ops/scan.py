@@ -4,8 +4,13 @@
   gives the contiguous committed frontier (ops/scan.py of the JAX
   package, a cumulative pass there).
 - ``segmented_scan_max`` / ``exclusive_segmented_scan_max``: the
-  segmented max-scan the KV engine uses for "last write to my key before
-  me" (a ``lax.associative_scan`` there; PyTorch has no counterpart).
+  segmented max-scan of the JAX package's KV engine (a
+  ``lax.associative_scan`` there; PyTorch has no counterpart).
+- ``kv_segments``: the KV apply's whole segment work on its key-sorted
+  rows (the JAX package's ops/kvstore.py:270-308: segment starts from
+  rolled keys, the exclusive scan for each row's last earlier write, the
+  reversed scan for each key's final writer) in one launch. The apply
+  calls it in place of the three scans.
 
 All take a leading batch axis and scan along the last one. On a CUDA
 tensor they launch ``kernels/csrc/scan.cu``; on the CPU they run the
@@ -14,6 +19,7 @@ plain version below.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from minpaxos_tpu_torch import kernels as K
@@ -75,6 +81,106 @@ def exclusive_segmented_scan_max(values, seg_start, identity: int):
     if K.on_cpu(values, seg_start):
         return _exclusive_plain(values, seg_start, identity)
     return _seg_scan_kernel(values, seg_start, True, identity)
+
+
+def _kv_segments_plain(s_khi, s_klo, s_valid, s_write):
+    """The JAX apply's composition (ops/kvstore.py:270-308), batched:
+    segment starts from rolled keys, the exclusive max-scan of write
+    positions, and the inclusive one reversed through flips."""
+    e = s_khi.shape[-1]
+    pos = torch.arange(e, dtype=I32, device=s_khi.device).expand_as(s_khi)
+    seg_start = ((pos == 0) | (s_khi != torch.roll(s_khi, 1, 1))
+                 | (s_klo != torch.roll(s_klo, 1, 1))
+                 | (s_valid != torch.roll(s_valid, 1, 1)))
+    wpos = torch.where(s_write, pos, -1)
+    prev_w = _exclusive_plain(wpos, seg_start, -1)
+    seg_max_w = _segmented_scan_max_plain(wpos, seg_start)
+    seg_end = torch.roll(seg_start, -1, 1)
+    seg_end[:, -1] = True
+    seg_total = _segmented_scan_max_plain(seg_max_w.flip(1), seg_end.flip(1)).flip(1)
+    return prev_w, s_write & (pos == seg_total)
+
+
+@K.kernel("kv_segments")
+def _kv_segments_kernel(s_khi, s_klo, s_valid, s_write):
+    hi = K.cuda_arg(s_khi, I32, "kv_segments key_hi")
+    lo = K.cuda_arg(s_klo, I32, "kv_segments key_lo")
+    ok = K.cuda_arg(s_valid, torch.bool, "kv_segments valid")
+    wr = K.cuda_arg(s_write, torch.bool, "kv_segments write")
+    b, e = hi.shape
+    prev_w = torch.empty((b, e), dtype=I32, device=hi.device)
+    final = torch.empty((b, e), dtype=torch.bool, device=hi.device)
+    f_ = K.fn("scan", "mp_kv_segments", [K.P] * 6 + [K.L, K.I, K.P])
+    rc = f_(K.ptr(hi), K.ptr(lo), K.ptr(ok), K.ptr(wr), K.ptr(prev_w), K.ptr(final),
+            b, e, K.stream(hi))
+    K.check("scan", rc, "kv_segments")
+    _kv_segments_kernel.launches += 1
+    return prev_w, final
+
+
+def kv_segments(s_khi, s_klo, s_valid, s_write):
+    """The KV apply's segments over [B, E] rows sorted by key (segments:
+    runs of equal (key_hi, key_lo, valid)). Returns ``prev_w`` int32
+    (the position of the last write before each row in its segment, -1
+    if none) and ``is_final_writer`` bool (a write with no later write
+    in its segment)."""
+    if K.on_cpu(s_khi, s_klo, s_valid, s_write):
+        return _kv_segments_plain(s_khi, s_klo, s_valid, s_write)
+    return _kv_segments_kernel(s_khi, s_klo, s_valid, s_write)
+
+
+SEGMENT_FAMILIES = ("distinct", "one_key", "put_get_delete_runs", "invalid_between",
+                    "apply_sorted")
+
+
+def segment_families(rng, b: int, e: int, names=None) -> dict:
+    """``kv_segments`` input families as numpy, drawn from the numpy
+    generator ``rng``: each is (key_hi, key_lo, valid, write), [b, e].
+    ``distinct``: every key different (every row its own segment).
+    ``one_key``: one key for the whole row, writes at random.
+    ``put_get_delete_runs``: runs of one key of 1 to 40 rows, each row a
+    write (PUT or DELETE) or a GET. ``invalid_between``: one key, valid
+    and invalid rows interleaved (valid changes start segments).
+    ``apply_sorted``: what the apply hands over: commands on 64 keys
+    (key_hi 0 or 1), 90% valid, 70% writes, sorted by key with invalid
+    rows last, as ``ops/kvstore.py sort_order`` sorts them. ``names``
+    picks some families (all by default); the CPU oracle test, the card
+    tests and ``chip_smoke.py`` share them."""
+    i32 = np.int32
+    out = {}
+    for name in names or SEGMENT_FAMILIES:
+        if name == "distinct":
+            hi = rng.integers(-3, 3, (b, e)).astype(i32)
+            lo = np.broadcast_to(np.arange(e, dtype=i32) * 7 - 100, (b, e)).copy()
+            ok = rng.random((b, e)) < 0.95
+            wr = ok & (rng.random((b, e)) < 0.6)
+        elif name == "one_key":
+            hi = np.zeros((b, e), i32)
+            lo = np.full((b, e), 12345, i32)
+            ok = np.ones((b, e), bool)
+            wr = rng.random((b, e)) < 0.5
+        elif name == "put_get_delete_runs":
+            hi = np.zeros((b, e), i32)
+            lo = np.cumsum(rng.random((b, e)) < 1 / 20, 1).astype(i32)
+            ok = np.ones((b, e), bool)
+            wr = rng.random((b, e)) < 2 / 3
+        elif name == "invalid_between":
+            hi = np.full((b, e), -1, i32)
+            lo = np.full((b, e), 77, i32)
+            ok = rng.random((b, e)) < 0.6
+            wr = ok & (rng.random((b, e)) < 0.5)
+        else:
+            hi = rng.integers(0, 2, (b, e)).astype(i32)
+            lo = rng.integers(0, 32, (b, e)).astype(i32)
+            ok = rng.random((b, e)) < 0.9
+            wr = ok & (rng.random((b, e)) < 0.7)
+            big = 2 ** 31 - 1
+            comp = ((np.where(ok, hi, big).astype(np.int64) << 32)
+                    + np.where(ok, lo, big).astype(np.int64) + 2 ** 31)
+            order = np.argsort(comp, 1, kind="stable")
+            hi, lo, ok, wr = (np.take_along_axis(x, order, 1) for x in (hi, lo, ok, wr))
+        out[name] = (hi, lo, ok, wr)
+    return out
 
 
 def _commit_frontier_plain(committed, start):

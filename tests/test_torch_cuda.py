@@ -18,6 +18,8 @@ import pytest
 import torch
 
 from minpaxos_tpu_torch.ops.ackruns import ACK_FAMILIES
+from minpaxos_tpu_torch.ops.kvstore import LOOKUP_FAMILIES
+from minpaxos_tpu_torch.ops.scan import SEGMENT_FAMILIES
 
 pytestmark = pytest.mark.cuda
 
@@ -232,6 +234,76 @@ def test_kv_kernels_and_apply(dev):
         assert torch.equal(out.cpu(), out_c) and torch.equal(found.cpu(), found_c)
     assert displaced > 0  # the displacement pass ran
     assert int(kv.dropped.sum()) > 0  # and rows it could not place dropped
+
+
+# K4 lookup at each path's shape (batch rows, query rows, table ways),
+# and a table of one bucket (both candidates the same)
+_KV_LOOKUP_SHAPES = {"minpaxos": (1280, 512, 1 << 15), "mencius": (1280, 320, 1 << 14),
+                     "tcp": (1, 128, 1 << 18), "one_bucket": (8, 64, 4)}
+
+
+def _on_dev(dev, x):
+    return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+
+@pytest.mark.parametrize("family", LOOKUP_FAMILIES)
+@pytest.mark.parametrize("path", list(_KV_LOOKUP_SHAPES))
+def test_kv_lookup_kernel_on_families(dev, path, family):
+    """K4 lookup against its twin on every family of ``ops/kvstore.py
+    lookup_families`` at the MinPaxos, Mencius and TCP shapes and on a
+    one-bucket table, launched 10 times each: a race shows as a launch
+    that differs."""
+    from minpaxos_tpu_torch.ops import kvstore as kvs
+
+    b, e, c = _KV_LOOKUP_SHAPES[path]
+    tables, queries = kvs.lookup_families(np.random.default_rng(b + e + c), b, e, c,
+                                          names=(family,))[family]
+    kv = kvs.KVState(*(_on_dev(dev, x) for x in tables),
+                     torch.zeros(b, dtype=torch.int32, device=dev))
+    q = [_on_dev(dev, x) for x in queries]
+    want = kvs._kv_lookup_plain(kv, *q)
+    for _ in range(10):
+        got = kvs.kv_lookup_lanes(kv, *q)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_kv_lookup_refuses_misaligned_table(dev):
+    """K4 lookup reads a bucket in one 16-byte load, so a table that
+    does not start on a 16-byte boundary raises instead of launching."""
+    from minpaxos_tpu_torch.ops import kvstore as kvs
+
+    B, C = 2, 1 << 10
+    slot = torch.zeros(B * C + 1, dtype=torch.int32, device=dev)[1:].view(B, C)
+    kv = kvs.kv_init(10, B, dev)._replace(slot=slot)
+    lo = torch.arange(1, 9, device=dev, dtype=torch.int32)[None].expand(B, -1).contiguous()
+    with pytest.raises(RuntimeError, match="shape not supported"):
+        kvs.kv_lookup_lanes(kv, torch.zeros_like(lo), lo, torch.ones_like(lo, dtype=torch.bool))
+
+
+# kv_segments at each path's shape (batch rows, exec rows), one row, a
+# row off every vector width, and rows of several chunks
+_SEG_SHAPES = {"minpaxos": (1280, 512), "mencius": (1280, 320), "tcp": (1, 128),
+               "E1": (5, 1), "E33": (7, 33), "E1100_three_chunks": (6, 1100)}
+
+
+@pytest.mark.parametrize("family", SEGMENT_FAMILIES)
+@pytest.mark.parametrize("shape", list(_SEG_SHAPES))
+def test_kv_segments_kernel_on_families(dev, shape, family):
+    """The fused segment kernel against its twin on every family of
+    ``ops/scan.py segment_families``, launched 10 times each, and on the
+    same rows one element into their storage (scalar loads)."""
+    from minpaxos_tpu_torch.ops import scan
+
+    b, e = _SEG_SHAPES[shape]
+    arrs = [_on_dev(dev, x) for x in scan.segment_families(
+        np.random.default_rng(b + e), b, e, names=(family,))[family]]
+    want = scan._kv_segments_plain(*arrs)
+    for _ in range(10):
+        got = scan.kv_segments(*arrs)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    shifted = [torch.cat([x.new_zeros(1), x.flatten()])[1:].view(b, e) for x in arrs]
+    got = scan.kv_segments(*shifted)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("stride", [1, 5])
