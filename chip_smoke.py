@@ -41,8 +41,13 @@ Phases, each printing one JSON line:
               every slot one key, at the Mencius shape and at 16,384
               slots, each timed. K8
               (the round's PROPOSE rows: a round where cmd_id wraps, a
-              hot-key batch, the numpy twin too), K9 (round_open /
-              round_close, ring armed and off, a drain sub-step) and K10
+              hot-key batch, the numpy twin too), K9 (chains of 20
+              rounds of ops/resident.py k9_families: random latencies,
+              one bin as in place, edge cursors; each round's close
+              opening the next round, ring armed with a drain sub-step's
+              open, and off; held to the twins after every round; the
+              fused close timed beside unfused_ms, a close then a
+              round_open, and the close alone) and K10
               (slot_write in modes A and B, gather_rows in every form,
               on adversarial inboxes) at each path's shapes.
               Device times of kernel, plain version and, where one
@@ -66,9 +71,11 @@ Phases, each printing one JSON line:
               read back, with its last value, from all five replicas'
               KV tables against a host replay of the Threefry workload.
               Launch counts of each kernel over the run show the path
-              went through the kernels. Then the K4 lookup compare's
-              "path" case on the run's own tables: per table, keys drawn
-              from its LIVE keys with a few misses, sorted by key, valid
+              went through the kernels; K9 must launch k + 1 times per
+              k-round dispatch (k9_launches_per_dispatch). Then the K4
+              lookup compare's "path" case on the run's own tables: per
+              table, keys drawn from its LIVE keys with a few misses,
+              sorted by key, valid
               where no earlier row has the key, as the apply asks; it
               is the kernels line's kv_lookup row (the random case
               keeps its hits in each table's first ways, which stay in
@@ -138,6 +145,7 @@ M_CU, M_REC, M_NOOP, M_KV_POW2, M_KEY_SPACE = 128, 64, 8, 14, 8192
 DISPATCHES = 4  # measured k-round dispatches; the rate skips the first
 MAX_DRAIN = 12  # drain dispatches a resident run may take
 VG, V_DISPATCHES = 16, 2  # the variants phase: groups, loaded dispatches
+K9_ROUNDS = 20  # K9's compare chains: rounds, each held to the twin
 # the TCP deployment: BASELINE config 1 at the shape bench_tcp.py:56 runs
 # (master + 3 durable MinPaxos replica servers, one process each),
 # gen_workload(20000, seed=42) PUTs closed loop in batches of 512 with
@@ -892,19 +900,192 @@ def compare_kernels(dev, seed: int, sh: Shapes) -> tuple[dict, float]:
             ranked=int((got[0] < S).sum().item()), cases=cases,
             shapes=f"window [{B},{S}] (keys, status, op, executed), cursors [{B}] "
                    f"-> slot_of [{B},{E}], newly_exec [{B},{S}]")
-    res.update(compare_loop_kernels(dev, g, sh))
+    res.update(compare_loop_kernels(dev, g, sh, seed))
     torch.cuda.synchronize()
     return res, apply_err
 
 
-def compare_loop_kernels(dev, g, sh: Shapes) -> dict:
+def chain_ms(calls, reset) -> tuple[float, float]:
+    """Device ms per call of ``calls``, a chain in which each call goes on
+    from the state the one before left (so none repeats another's work):
+    captured once in a CUDA graph and replayed between two CUDA events
+    after ``reset`` restored the chain's start; and the host-issued ms
+    per call of the same calls made eagerly."""
+    reset()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for c in calls:
+            c()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    out = []
+    for run in (graph.replay, lambda: [c() for c in calls]):
+        run()  # warm
+        reset()
+        torch.cuda.synchronize()
+        t0.record()
+        run()
+        t1.record()
+        torch.cuda.synchronize()
+        out.append(t0.elapsed_time(t1) / len(calls))
+    del graph
+    return out[0], out[1]
+
+
+def compare_k9(dev, sh: Shapes, seed: int, leader: int, n_prop: int) -> dict:
+    """K9 on chained rounds of ops/resident.py k9_families at the path's
+    widths (ring [G, W], pending kinds [B, cap], 512 bins): random
+    latencies, one bin (every sampled latency 3 rounds, as in place) and
+    the edge cursors, each chain of K9_ROUNDS rounds held to the plain
+    twins after every round, the ring armed (8 rows: it wraps; a drain
+    sub-step's round_open before each close) and off. Times: round_open
+    (first round, ring armed); round_close fused with the next round's
+    open, ring armed, on one_bin (the headline: the main path's launch)
+    and random, each beside ``unfused_ms`` (the same rounds as the loop
+    ran them before: a close, then a round_open); round_close alone
+    (no next round), ring armed and off, random and one_bin. The bound
+    counts, per round, the stamps written, the samples read that were
+    not stamped this round, the touched bins, the cursors, the row, and
+    with the next round opened the [B, cap] pending kinds."""
+    from minpaxos_tpu_torch.ops import resident
+
+    G, R, W, Mp, bins = sh.groups, sh.replicas, sh.S, sh.cap, 512
+    B = G * R
+    per_round = P if sh.path == "minpaxos" else R * M_P  # slots a group assigns
+    cur = max(leader, 0)
+    injected = G * n_prop * (1 if leader >= 0 else R)
+    fams = {k: resident.k9_on(f, dev, sh.path == "minpaxos") for k, f in
+            resident.k9_families(np.random.default_rng(seed), G, R, W, Mp, K9_ROUNDS,
+                                 per_round).items()}
+
+    def bufs(fam, rows):
+        return (resident.new_scratch(G, dev), fam["inj"].clone(),
+                torch.zeros(bins, dtype=torch.int32, device=dev),
+                torch.full((rows, 9), -1, dtype=torch.int32, device=dev))
+
+    # equality over the chains; per round of the armed chains, the bins
+    # the round touched
+    err, touched = 0.0, {}
+    for name, fam in fams.items():
+        for rows in (8, 0):
+            a, b = bufs(fam, rows), bufs(fam, rows)
+            hist0, t_bins = b[2].clone(), []
+            for _ in zip(resident.chain_rounds(fam, a, cur, n_prop, leader, 3, drain=True),
+                         resident.chain_rounds(fam, b, cur, n_prop, leader, 3, drain=True,
+                                               plain=True)):
+                err = max(err, max_abs_err(a, b))
+                t_bins.append(int((b[2] != hist0).sum().item()))
+                hist0 = b[2].clone()
+            if rows:
+                touched[name] = t_bins
+
+    def round_bytes(name, t, opened):
+        """Bytes round t of family ``name`` must move, and its operations."""
+        pre, post = fams[name]["states"][t], fams[name]["states"][t + 1]
+        up = pre.committed_upto.view(G, R)[:, cur, None]
+        cp = pre.crt_inst.view(G, R)[:, cur, None]
+        n_st = (post.crt_inst.view(G, R)[:, cur, None] - cp).clamp(0, W)
+        n_sa = (post.committed_upto.view(G, R)[:, cur, None] - up).clamp(0, W)
+        k = torch.arange(W, device=dev)[None, :]
+        read = (k < n_sa) & (torch.remainder(up + 1 + k - cp, W) >= n_st)
+        stamps, samples = int(n_st.sum().item()), int(n_sa.sum().item())
+        nbytes = (4 * (stamps + int(read.sum().item())) + 8 * touched[name][t]
+                  + G * 9 * 4 + (G if sh.path == "minpaxos" else 0) + 9 * 4
+                  + (B * Mp * 4 if opened else 0))
+        return nbytes, stamps * 2 + samples * 6 + (B * Mp * 2 if opened else 0)
+
+    tel = torch.full((8, 9), -1, dtype=torch.int32, device=dev)
+
+    def k9_rounds(fam, fused=True, plain=False, rounds=K9_ROUNDS):
+        """The chain's rounds, ring armed, on one set of buffers, each
+        round's close opening the next round (``fused``) or followed by a
+        round_open of it; and the reset to the chain's start."""
+        scr, inj, hist, _ = bufs(fam, 0)
+        resident.round_open(scr, fam["states"][0], fam["kinds"][0], cur, G, n_prop, leader,
+                            True, True, fam["r0"])
+        scr0, inj0 = scr.clone(), inj.clone()
+        close = resident._round_close_plain if plain else resident.round_close
+
+        def one(t):
+            st = fam["states"][t + 1]
+            close(scr, inj, hist, tel, st, cur, fam["r0"] + t, 3, injected,
+                  fam["kinds"][0] if fused else None, n_prop, leader)
+            if not fused:
+                resident.round_open(scr, st, fam["kinds"][0], cur, G, n_prop, leader,
+                                    True, True, fam["r0"] + t + 1)
+
+        return ([lambda t=t: one(t) for t in range(rounds)],
+                lambda: (scr.copy_(scr0), inj.copy_(inj0)))
+
+    cases = {}
+    for name in ("one_bin", "random"):
+        fam = fams[name]
+        ms, host = chain_ms(*k9_rounds(fam))
+        unfused, _ = chain_ms(*k9_rounds(fam, fused=False))
+        per = [round_bytes(name, t, True) for t in range(K9_ROUNDS)]
+        cases[f"fused_{name}"] = dict(ms=ms, host_ms=host, unfused_ms=unfused,
+                                      bytes=sum(x[0] for x in per) / K9_ROUNDS,
+                                      ops=sum(x[1] for x in per) / K9_ROUNDS)
+        # alone (no next round): every launch repeats round 0's work
+        for rows in (8, 0):
+            scr, inj, hist, tb = bufs(fam, rows)
+            resident.round_open(scr, fam["states"][0], fam["kinds"][0], cur, G, n_prop,
+                                leader, True, rows > 0, fam["r0"])
+            inj0 = inj.clone()
+            cases[f"alone_{name}" + ("" if rows else "_ring_off")] = dict(
+                ms=graph_ms(lambda: resident.round_close(
+                    scr, inj, hist, tb, fam["states"][1], cur, fam["r0"], 3, injected),
+                    reset=lambda: inj.copy_(inj0)),
+                bytes=round_bytes(name, 0, False)[0])
+    head = cases.pop("fused_one_bin")
+    fam = fams["one_bin"]
+    plain_ms, _ = chain_ms(*k9_rounds(fam, plain=True, rounds=5))
+    # the histogram part alone, as one library call (torch.bincount
+    # sizes its output from the data, so it cannot be graph-captured:
+    # its time is host-issued), on round 0 of the headline
+    pre, post = fam["states"][0], fam["states"][1]
+    pos = torch.arange(W, device=dev)[None, :]
+    u_prev = pre.committed_upto.view(G, R)[:, cur, None]
+    c_prev = pre.crt_inst.view(G, R)[:, cur, None]
+    inj1 = torch.where(c_prev + torch.remainder(pos - c_prev, W)
+                       < post.crt_inst.view(G, R)[:, cur, None], fam["r0"], fam["inj"])
+    up = u_prev + 1
+    wts = ((up + torch.remainder(pos - up, W) <= post.committed_upto.view(G, R)[:, cur, None])
+           & (inj1 >= 0)).flatten().float()
+    hbins = (fam["r0"] - inj1).clamp(0, bins - 1).flatten().long()
+    open_scr = resident.new_scratch(G, dev)
+    st0, kind0 = fam["states"][0], fam["kinds"][0]
+    out = dict(
+        round_open=dict(
+            err=err, **times(
+                lambda: resident.round_open(open_scr, st0, kind0, cur, G, n_prop, leader,
+                                            True, True, fam["r0"]),
+                lambda: resident._round_open_plain(open_scr, st0, kind0, cur, G, n_prop,
+                                                   leader, True, True, fam["r0"])),
+            library_what="none",
+            bytes=B * Mp * 4 + 3 * G * 4 * 2,
+            ops=B * Mp * 2,  # a compare and an add per pending row
+            shapes=f"pending kind [{B},{Mp}], cursors [{B}] -> scratch [{3 * G}+acc]"),
+        round_close=dict(
+            err=err, ms=head["ms"], host_ms=head["host_ms"], plain_ms=plain_ms,
+            library_ms=cuda_ms(lambda: torch.bincount(hbins, weights=wts, minlength=bins)),
+            unfused_ms=head["unfused_ms"], bytes=head["bytes"], ops=head["ops"],
+            library_what="torch.bincount with weights: the histogram part only, "
+                         "host-issued",
+            chain_rounds=K9_ROUNDS, touched_bins=touched, cases=cases,
+            shapes=f"ring [{G},{W}], {per_round} slots a group a round, histogram "
+                   f"[{bins}], telemetry ring [8,9], next round's pending kind "
+                   f"[{B},{Mp}]; fused with the next round's open, one_bin"))
+    return out
+
+
+def compare_loop_kernels(dev, g, sh: Shapes, seed: int) -> dict:
     """K8 (the round's PROPOSE rows), K9 (the round's bookkeeping) and
     K10 (both slot-write forms) against their plain twins at the path's
     shapes, on adversarial inputs; K8 and K9 only on the resident paths."""
-    from types import SimpleNamespace as NS
-
     from minpaxos_tpu_torch.models.minpaxos import MsgBatch
-    from minpaxos_tpu_torch.ops import resident, winner
+    from minpaxos_tpu_torch.ops import winner
     from minpaxos_tpu_torch.ops import workload as wl
 
     G, R = sh.groups, sh.replicas
@@ -943,90 +1124,7 @@ def compare_loop_kernels(dev, g, sh: Shapes) -> dict:
             ops=G * ext * 330 + 12 * B * ext,
             shapes=f"[12,{B},{ext}] rows, {count} live per replica, hot_pct 0 / 30")
 
-        # K9: cursors of a mid-run round (snapshot before the step, the
-        # step's effect after), pending inboxes [B, cap], a ring of
-        # stamps, the telemetry ring wrapping
-        W, Mp, bins = S, sh.cap, 512
-        u0 = ri(1000, 6000, (B,))
-        pre = NS(committed_upto=u0, crt_inst=u0 + 1 + ri(0, 1500, (B,)),
-                 executed_upto=u0 - ri(0, 300, (B,)))
-        post = NS(committed_upto=u0 + ri(0, 700, (B,)),
-                  crt_inst=pre.crt_inst + ri(0, 700, (B,)),
-                  executed_upto=pre.executed_upto + ri(0, 500, (B,)))
-        post.crt_inst = torch.maximum(post.crt_inst, post.committed_upto + 1)
-        if sh.path == "minpaxos":
-            post.prepared = rb(0.9, (B,))
-        kind = torch.where(rb(0.3, (B, Mp)), ri(1, 12, (B, Mp)), 0)
-        kind2 = torch.where(rb(0.1, (B, Mp)), ri(1, 12, (B, Mp)), 0)
-        rnd, base, rows = 300, 9, 160  # (300 - 9) mod 160: the ring wrapped
-        inj0 = torch.where(rb(0.8, (G, W)), ri(0, rnd, (G, W)), -1)
-        bufs = dict(inj=inj0, hist=ri(0, 50, (bins,)),
-                    tel=torch.full((rows, 9), -1, dtype=torch.int32, device=dev),
-                    scr=resident.new_scratch(G, dev))
-        cur = max(leader, 0)
-        injected = G * count * (1 if leader >= 0 else R)
-
-        def round_(kernel, b, tel_on):
-            op_ = resident.round_open if kernel else resident._round_open_plain
-            cl_ = resident.round_close if kernel else resident._round_close_plain
-            tel = b["tel"] if tel_on else b["tel"][:0]
-            op_(b["scr"], pre, kind, cur, G, count, leader, True, tel_on)
-            if tel_on:  # a drain sub-step's delivery
-                op_(b["scr"], pre, kind2, cur, G, 0, leader, False, True)
-            cl_(b["scr"], b["inj"], b["hist"], tel, post, cur, rnd, base, injected)
-            return tuple(b.values())
-
-        err_o = err_c = 0.0
-        for tel_on in (True, False):
-            a = {k: v.clone() for k, v in bufs.items()}
-            c = {k: v.clone() for k, v in bufs.items()}
-            e = max_abs_err(round_(True, a, tel_on), round_(False, c, tel_on))
-            err_o, err_c = max(err_o, e), max(err_c, e)
-        work = {k: v.clone() for k, v in bufs.items()}
-        res["round_open"] = dict(
-            err=err_o, **times(
-                lambda: resident.round_open(work["scr"], pre, kind, cur, G, count,
-                                            leader, True, True),
-                lambda: resident._round_open_plain(work["scr"], pre, kind, cur, G,
-                                                   count, leader, True, True)),
-            library_what="none",
-            bytes=B * Mp * 4 + 3 * G * 4 * 2,
-            ops=B * Mp * 2,  # a compare and an add per pending row
-            shapes=f"pending kind [{B},{Mp}], cursors [{B}] -> scratch [{3 * G + 8}]")
-        # the histogram part alone, as one library call (torch.bincount
-        # sizes its output from the data, so it cannot be graph-captured:
-        # its time is host-issued)
-        pos = torch.arange(W, device=dev)[None, :]
-        c_new = post.crt_inst.view(G, R)[:, cur, None]
-        u_prev = pre.committed_upto.view(G, R)[:, cur, None]
-        c_prev = pre.crt_inst.view(G, R)[:, cur, None]
-        inj1 = torch.where(c_prev + torch.remainder(pos - c_prev, W) < c_new, rnd, inj0)
-        up = u_prev + 1
-        wts = ((up + torch.remainder(pos - up, W)
-                <= post.committed_upto.view(G, R)[:, cur, None]) & (inj1 >= 0)).flatten().float()
-        hbins = (rnd - inj1).clamp(0, bins - 1).flatten().long()
-        # what the function must touch: the stamps written over [c_prev,
-        # c_new) and read over (u_prev, u_new] of each group, clipped to
-        # the ring
-        n_stamp = int((c_new[:, 0] - c_prev[:, 0]).clamp(0, W).sum().item())
-        n_samp = int((post.committed_upto.view(G, R)[:, cur] - u_prev[:, 0])
-                     .clamp(0, W).sum().item())
-        tel_w = work["tel"]
-        row = times(lambda: resident.round_close(work["scr"], work["inj"], work["hist"],
-                                                 tel_w, post, cur, rnd, base, injected),
-                    lambda: resident._round_close_plain(work["scr"], work["inj"],
-                                                        work["hist"], tel_w, post, cur,
-                                                        rnd, base, injected))
-        row["library_ms"] = cuda_ms(lambda: torch.bincount(hbins, weights=wts, minlength=bins))
-        res["round_close"] = dict(
-            err=err_c, **row,
-            library_what="torch.bincount with weights: the histogram part only, "
-                         "host-issued",
-            stamped=n_stamp, sampled=n_samp,
-            bytes=(n_stamp + n_samp) * 4 + 2 * bins * 4 + 6 * G * 4,
-            ops=n_stamp * 2 + n_samp * 6,  # a position per stamp; a clip, an add per sample
-            shapes=f"ring [{G},{W}] ({n_stamp} stamped, {n_samp} sampled), "
-                   f"histogram [{bins}], telemetry ring [{rows},9]")
+        res.update(compare_k9(dev, sh, seed, leader, count))
 
     # K10: slot_write (fused writes A and B) and gather_rows (Mencius's
     # writes) on adversarial inboxes: many rows on four slots in both
@@ -1514,6 +1612,12 @@ def telemetry_summary(tel: np.ndarray, rounds_run: int, committed_gain: int,
     return rec, bad
 
 
+def k9_per_dispatch(launches: dict, n_dispatches: int) -> float:
+    """K9's launches (round_open + round_close) per k-round dispatch:
+    k + 1 with the ring armed and substeps 1."""
+    return (launches.get("round_open", 0) + launches.get("round_close", 0)) / n_dispatches
+
+
 def main_path(dev, seed: int, dispatches: int, profile_dir: str | None = None) -> dict:
     from minpaxos_tpu_torch import kernels as K
     from minpaxos_tpu_torch.models.minpaxos import MinPaxosConfig
@@ -1575,10 +1679,14 @@ def main_path(dev, seed: int, dispatches: int, profile_dir: str | None = None) -
         committed_inst_per_s=committed_measured / t_meas,
         p50_latency_rounds=p50, p99_latency_rounds=p99,
         max_memory_allocated=torch.cuda.max_memory_allocated(),
+        k9_launches_per_dispatch=k9_per_dispatch(launches, dispatches + drain_dispatches),
         **tel_rec, launches=launches)
     emit(rec)
     if tel_bad:
         fail("mainpath", "; ".join(tel_bad))
+    if rec["k9_launches_per_dispatch"] != K_ROUNDS + 1:
+        fail("mainpath", f"K9 launched {rec['k9_launches_per_dispatch']} times per "
+                       f"dispatch, not once a round and once before the first step")
     if committed != injected:
         fail("mainpath", f"committed {committed} != injected {injected}")
     if n != committed:
@@ -1676,10 +1784,14 @@ def mencius_path(dev, seed: int, dispatches: int, profile_dir: str | None = None
         committed_inst_per_s=committed_measured / t_meas,
         p50_latency_rounds=p50, p99_latency_rounds=p99,
         max_memory_allocated=torch.cuda.max_memory_allocated(),
+        k9_launches_per_dispatch=k9_per_dispatch(launches, dispatches + drain_dispatches),
         **tel_rec, launches=launches)
     emit(rec)
     if tel_bad:
         fail("mencius", "; ".join(tel_bad))
+    if rec["k9_launches_per_dispatch"] != K_ROUNDS + 1:
+        fail("mencius", f"K9 launched {rec['k9_launches_per_dispatch']} times per "
+                       f"dispatch, not once a round and once before the first step")
     if not aligned:
         fail("mencius", "an owner did not propose exactly p rows in every round")
     if committed != injected:
@@ -2155,8 +2267,9 @@ def main() -> None:
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=v["library_ms"]))
-            if v.get("library_what"):
-                table[-1]["library_what"] = v["library_what"]
+            for key in ("library_what", "unfused_ms"):
+                if v.get(key) is not None:
+                    table[-1][key] = v[key]
     emit({"kernels": table})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -8,8 +8,10 @@ groups at once.
 * ``sharded_run_resident`` is the measured loop: k rounds per dispatch
   with the workload made on the card (K8, ops/workload.py), the per-slot
   inject ring, the latency histogram and the paxray telemetry ring kept
-  on the card (K9, ops/resident.py), optional zero-width drain
-  sub-steps, and nothing read back but two scalars per dispatch.
+  on the card (K9, ops/resident.py: one launch a round, plus one before
+  the dispatch's first step), optional zero-width drain sub-steps, and
+  nothing read back but the two totals the last launch writes, in one
+  copy per dispatch.
 * ``sharded_run`` is the host-in-the-loop form: k rounds that return
   the cursor replica's [k, G] (committed_upto, crt_inst) histories.
 
@@ -37,7 +39,13 @@ from minpaxos_tpu_torch.models.minpaxos import (
     replica_step_impl,
 )
 from minpaxos_tpu_torch.obs.recorder import N_TEL_FIELDS, telemetry_valid_rows
-from minpaxos_tpu_torch.ops.resident import new_scratch, round_close, round_open
+from minpaxos_tpu_torch.ops.resident import (
+    write_totals,
+    new_scratch,
+    round_close,
+    round_open,
+    totals_of,
+)
 from minpaxos_tpu_torch.ops.util import I32, argmin_first
 from minpaxos_tpu_torch.ops.workload import propose_batch
 
@@ -138,6 +146,49 @@ def sharded_run(cfg: MinPaxosConfig, n_shards: int, ext_rows: int, k_rounds: int
     return ss, torch.stack(uptos), torch.stack(crts)
 
 
+def _resident_rounds(cfg: MinPaxosConfig, n_shards: int, ext_rows: int,
+                     k_rounds: int, ss: ClusterState, inject_round: torch.Tensor,
+                     lat_hist: torch.Tensor, telemetry: torch.Tensor,
+                     n_proposals: int, leader: int, round0: int, seed: int,
+                     step_impl, key_space: int, substeps: int, tel_base: int):
+    """``sharded_run_resident``'s loop: returns (ss', inject_round',
+    lat_hist', telemetry', totals) with ``totals`` the [2] int32
+    (committed_total, in_flight) that the last round's K9 launch wrote.
+
+    K9 launches once a round: ``round_open`` before the first step, then
+    each round's ``round_close``, which opens the next round (nothing
+    writes the states or the pending inboxes between the two) and, on
+    the last round, writes the totals. With the ring armed a drain
+    sub-step's ``round_open`` adds its deliveries to the round's
+    inbox_rows and inbox_hwm."""
+    r = cfg.n_replicas
+    dev = inject_round.device
+    cursor_rep = max(leader, 0)
+    tel_on = telemetry.shape[0] > 0
+    scratch = new_scratch(n_shards, dev)  # K9's cursor snapshot + row terms
+    injected = n_shards * n_proposals * (1 if leader >= 0 else r)
+    if k_rounds == 0:
+        write_totals(scratch, ss.states, cursor_rep, n_shards)
+    else:
+        round_open(scratch, ss.states, ss.pending.kind, cursor_rep, n_shards,
+                   n_proposals, leader, True, tel_on, round0)
+    for t in range(k_rounds):
+        rnd = round0 + t
+        ext = propose_batch(r, n_shards, ext_rows, n_proposals, leader, rnd, seed,
+                            key_space, device=dev)
+        ss, _, _, _ = cluster_step_impl(cfg, ss, ext, step_impl)
+        for _ in range(substeps - 1):
+            if tel_on:  # drain deliveries count into inbox_rows / inbox_hwm
+                round_open(scratch, ss.states, ss.pending.kind, cursor_rep,
+                           n_shards, 0, leader, False, True, rnd)
+            ss, _, _, _ = cluster_step_impl(cfg, ss, _drain_ext(ext), step_impl)
+        last = t == k_rounds - 1
+        round_close(scratch, inject_round, lat_hist, telemetry, ss.states,
+                    cursor_rep, rnd, tel_base, injected,
+                    None if last else ss.pending.kind, n_proposals, leader, last)
+    return ss, inject_round, lat_hist, telemetry, totals_of(scratch)
+
+
 def sharded_run_resident(cfg: MinPaxosConfig, n_shards: int, ext_rows: int,
                          k_rounds: int, ss: ClusterState, inject_round: torch.Tensor,
                          lat_hist: torch.Tensor, telemetry: torch.Tensor,
@@ -146,7 +197,7 @@ def sharded_run_resident(cfg: MinPaxosConfig, n_shards: int, ext_rows: int,
                          substeps: int = 1, tel_base: int = 0):
     """k rounds with nothing read back: returns (ss', inject_round',
     lat_hist', telemetry', committed_total, in_flight), the last two 0-d
-    tensors. ``step_impl`` is the replica step (Mencius:
+    int32 tensors. ``step_impl`` is the replica step (Mencius:
     mencius_step_impl, with ``leader`` -1 so every owner gets the
     round's proposals; the cursors are then read at replica 0).
 
@@ -160,30 +211,11 @@ def sharded_run_resident(cfg: MinPaxosConfig, n_shards: int, ext_rows: int,
     writes are then skipped. ``substeps`` - 1 zero-width drain
     sub-steps follow each round's step. The three buffers are updated
     in place."""
-    r = cfg.n_replicas
-    dev = inject_round.device
-    cursor_rep = max(leader, 0)
-    tel_on = telemetry.shape[0] > 0
-    scratch = new_scratch(n_shards, dev)  # K9's cursor snapshot + row terms
-    injected = n_shards * n_proposals * (1 if leader >= 0 else r)
-    for t in range(k_rounds):
-        rnd = round0 + t
-        round_open(scratch, ss.states, ss.pending.kind, cursor_rep, n_shards,
-                   n_proposals, leader, True, tel_on)
-        ext = propose_batch(r, n_shards, ext_rows, n_proposals, leader, rnd, seed,
-                            key_space, device=dev)
-        ss, _, _, _ = cluster_step_impl(cfg, ss, ext, step_impl)
-        for _ in range(substeps - 1):
-            if tel_on:  # drain deliveries count into inbox_rows / inbox_hwm
-                round_open(scratch, ss.states, ss.pending.kind, cursor_rep,
-                           n_shards, 0, leader, False, True)
-            ss, _, _, _ = cluster_step_impl(cfg, ss, _drain_ext(ext), step_impl)
-        round_close(scratch, inject_round, lat_hist, telemetry, ss.states,
-                    cursor_rep, rnd, tel_base, injected)
-    upto = ss.states.committed_upto.view(n_shards, r)[:, cursor_rep]
-    crt = ss.states.crt_inst.view(n_shards, r)[:, cursor_rep]
-    return (ss, inject_round, lat_hist, telemetry, (upto + 1).sum(),
-            (crt - 1 - upto).sum())
+    *out, totals = _resident_rounds(cfg, n_shards, ext_rows, k_rounds, ss,
+                                    inject_round, lat_hist, telemetry, n_proposals,
+                                    leader, round0, seed, step_impl, key_space,
+                                    substeps, tel_base)
+    return (*out, totals[0], totals[1])
 
 
 class ShardedCluster:
@@ -264,14 +296,15 @@ class ShardedCluster:
                      substeps: int = 1) -> tuple[int, int]:
         """k rounds, fully on the card; returns (committed_total,
         in_flight) — the only per-dispatch readback."""
-        (self.ss, self._inject_round, self._lat_hist, self._telemetry, committed,
-         in_flight) = sharded_run_resident(
+        (self.ss, self._inject_round, self._lat_hist, self._telemetry,
+         totals) = _resident_rounds(
             self.cfg, self.n_shards, self.ext_rows, k_rounds, self.ss,
             self._inject_round, self._lat_hist, self._telemetry,
             min(n_proposals, self.ext_rows), self.leader, self._seed, self.seed,
             self._step_impl, self.key_space, substeps, self._tel_base)
         self._seed += k_rounds
-        return int(committed), int(in_flight)
+        committed, in_flight = totals.tolist()  # one device-to-host copy
+        return committed, in_flight
 
     def resident_hist(self) -> np.ndarray:
         """The latency histogram, without disarming (a post-window read)."""

@@ -695,12 +695,62 @@ def test_round_kernels_at_edge_cursors(dev, tel_rows):
     for fo, fc in ((resident.round_open, resident.round_close),
                    (resident._round_open_plain, resident._round_close_plain)):
         scr, inj, hist, tel = (t.clone() for t in bufs)
-        fo(scr, pre, kind, 1, gr, 11, 1, True, tel_rows > 0)
+        fo(scr, pre, kind, 1, gr, 11, 1, True, tel_rows > 0, rnd)
         fc(scr, inj, hist, tel, post, 1, rnd, 3, gr * 11)
         out.append((scr, inj, hist, tel))
     for a, b in zip(*out):
         assert torch.equal(a, b)
     assert (out[0][1] == rnd).any() and not torch.equal(out[0][2], bufs[2])
+
+
+def _k9_chain_check(dev, family, g, r, w, mp, p, leader, tel_rows, drain, bins,
+                    rounds=12):
+    """K9 over ``rounds`` chained rounds of a k9_families family, the
+    kernels against the plain twins on the same card, every buffer
+    compared after every round: a race in the accumulator handover shows
+    as a round that differs."""
+    from minpaxos_tpu_torch.ops import resident
+
+    fam = resident.k9_on(resident.k9_families(np.random.default_rng(11), g, r, w, mp,
+                                              rounds, p, names=(family,))[family],
+                         dev, with_prepared=leader >= 0)
+
+    def bufs():
+        return (resident.new_scratch(g, dev), fam["inj"].clone(),
+                torch.arange(bins, dtype=torch.int32, device=dev),
+                torch.full((tel_rows, 9), -1, dtype=torch.int32, device=dev))
+
+    a, b = bufs(), bufs()
+    n0 = resident._round_close_kernel.launches
+    cur = max(leader, 0)
+    for _ in zip(resident.chain_rounds(fam, a, cur, p, leader, 3, drain=drain),
+                 resident.chain_rounds(fam, b, cur, p, leader, 3, drain=drain, plain=True)):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    assert resident._round_close_kernel.launches == n0 + rounds
+    assert resident.totals_of(a[0]).abs().sum() > 0
+
+
+@pytest.mark.parametrize("drain", [False, True])
+@pytest.mark.parametrize("tel_rows", [0, 5, 160])
+@pytest.mark.parametrize("family", ["random", "one_bin", "edges"])
+def test_round_close_fused_chains(dev, family, tel_rows, drain):
+    """K9 fused (each close opens the next round, the last writes the
+    totals) against its twins over 12 chained rounds: random latencies,
+    every latency in one bin, and groups that assign or commit nothing,
+    fewer than, exactly or more than a ring's worth, or go backwards;
+    the telemetry ring off, wrapping and long."""
+    _k9_chain_check(dev, family, 14, 3, 64, 40, 12, 1, tel_rows, drain, 9)
+
+
+@pytest.mark.parametrize("path", ["minpaxos", "mencius"])
+@pytest.mark.parametrize("family", ["random", "one_bin", "edges"])
+def test_round_close_fused_at_the_deployment(dev, path, family):
+    """The fused K9 at the 1M-instance deployments' widths (256 groups x
+    5 replicas, W = 4096, the pending inboxes' widths, 512 bins), ring
+    armed with a drain sub-step's open, over 12 chained rounds."""
+    mp, p, leader = (1664, 512, 0) if path == "minpaxos" else (2048, 320, -1)
+    _k9_chain_check(dev, family, 256, 5, 4096, mp, p, leader, 160, True, 512)
 
 
 def _slot_inputs(dev, seed, b=12, m=300, s=4100):

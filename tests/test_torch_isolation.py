@@ -223,7 +223,7 @@ def test_loop_kernels_never_fall_back():
     with pytest.raises(RuntimeError):
         resident.round_open(resident.new_scratch(2, "cpu"), st,
                             torch.zeros((10, 4), dtype=torch.int32, device="meta"),
-                            0, 2, 4, 0, True, True)
+                            0, 2, 4, 0, True, True, 1)
     with pytest.raises(RuntimeError):
         resident.round_close(resident.new_scratch(2, "cpu"),
                              torch.zeros((2, 8), dtype=torch.int32, device="meta"),
