@@ -22,6 +22,19 @@ Phases, each printing one JSON line:
               function as the apply composed it before (eager segment
               starts and flips around three seg_scan_max launches) as
               unfused_ms; seg_scan_max stands alone (no path launches it).
+              K3 advance_frontier (the steps' frontier update in one
+              launch: operand, start, scan and max) on five families of
+              ops/scan.py frontier_families (a round's run then a gap,
+              the headline), in the COMMITTED form and the EXECUTED form
+              with executed, each timed beside unfused_ms (the eager
+              operand and start around a commit_frontier launch, then
+              the eager max); commit_frontier stands alone (no path
+              launches it since the fusion). K5 scatter_vote_bits fused
+              with the OR into pvotes on the four families of
+              ops/ackruns.py pvote_families (no valid row, the steady
+              state, the headline), each timed beside unfused_ms (the
+              form without into, then the eager OR); the form without
+              into stands alone as scatter_vote_bits_alone.
               K1, K3, K4 lookup, K5 and K6 on 11 launches each.
               K5 ack_runs and vote_bits (fused with the OR into the
               votes table as the steps call it, under the driven-slot
@@ -109,6 +122,14 @@ Phases, each printing one JSON line:
               phase's exchange) under torch.profiler in this process —
               device busy ms and kernel launches per dispatch.
 
+With --profile DIR, 4 steady rounds of each resident path after its run
+are traced with torch.profiler into DIR (profile lines: device ms and
+launches per round, the port's kernels per round). The profile lines and
+dispatch_profile carry scatter_vote_bits_in_place: the kernel with a
+memset launched just before it and an int32 OR just after it counted
+(what the form before the fusion paid; profile_ab.py reads a parent
+tree's rounds with this script's accounting).
+
 Then the contract lines: the kernels table, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Any failed phase
 exits non-zero. Without a card the script fails before any phase.
@@ -189,17 +210,17 @@ PATHS = {
 }
 # the kernels each path launches, as registered in minpaxos_tpu_torch.kernels
 KERNELS = {
-    "minpaxos": ("route", "scatter_max", "kv_segments", "commit_frontier",
+    "minpaxos": ("route", "scatter_max", "kv_segments", "advance_frontier",
                  "kv_lookup", "kv_insert", "ack_runs", "vote_bits",
                  "scatter_vote_bits", "propose_rows", "round_open",
                  "round_close", "slot_write"),
-    "mencius": ("route", "scatter_max", "kv_segments", "commit_frontier",
+    "mencius": ("route", "scatter_max", "kv_segments", "advance_frontier",
                 "kv_lookup", "kv_insert", "ack_runs", "vote_bits",
                 "scatter_vote_bits", "exec_select", "propose_rows",
                 "round_open", "round_close", "gather_rows"),
     # every replica server's step and packing (no routing: the
     # transport delivers the rows)
-    "tcp": ("scatter_max", "kv_segments", "commit_frontier", "kv_lookup",
+    "tcp": ("scatter_max", "kv_segments", "advance_frontier", "kv_lookup",
             "kv_insert", "ack_runs", "vote_bits", "scatter_vote_bits",
             "pack_outputs", "slot_write"),
 }
@@ -213,6 +234,13 @@ K4_LOOKUP_CASES = ("all_miss", "last_way")
 # kv_segments' compare families (ops/scan.py segment_families); the
 # first, the apply's own sorted rows, is the headline
 SEG_CASES = ("apply_sorted", "distinct", "one_key", "put_get_delete_runs")
+# the fused pvotes scatter's compare families (ops/ackruns.py
+# pvote_families); the first, the steady state (no valid row), is the
+# headline
+PVOTE_CASES = ("no_valid", "random", "prepare", "edges")
+# advance_frontier's compare families (ops/scan.py frontier_families);
+# the first, a round's run of done slots then a gap, is the headline
+FRONTIER_CASES = ("path", "gap_at_start", "no_gap", "unaligned_start", "executed")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak
 # the published non-tensor-core rate (float32, 67 TFLOP/s); the kernels'
 # integer ALU work runs at most this fast, so ops / this is a lower bound
@@ -413,6 +441,49 @@ def vote_bytes(valid, s: int, into, mask) -> int:
     b = valid.shape[0]
     return (valid.numel() + int(valid.sum().item()) * 12 + b * 4
             + b * s * 4 * (2 if into is not None else 1) + (b * s if mask is not None else 0))
+
+
+def pvote_bytes(valid, s: int, into) -> int:
+    """The bytes K5 scatter_vote_bits must move, counted from the data:
+    every row's valid flag; a valid row's index and sender; the [B, S]
+    pvotes written once, and read once when fused (``into``)."""
+    b = valid.shape[0]
+    return (valid.numel() + int(valid.sum().item()) * 8
+            + b * s * 4 * (2 if into is not None else 1))
+
+
+def frontier_bytes(status, threshold, upto, wb, executed) -> int:
+    """The bytes K3 advance_frontier must move, counted from the data:
+    per row the status bytes from the start through the first slot that
+    is not done (the executed bytes too when given), upto and the window
+    base read and the frontier written."""
+    from minpaxos_tpu_torch.ops import scan
+
+    b, s = status.shape
+    done = status >= threshold
+    if executed is not None:
+        done = executed | done
+    start32 = upto + 1 - wb  # int32, wrapping as the steps' arithmetic does
+    start = start32.to(torch.int64)
+    rel = scan._commit_frontier_plain(done, start32).to(torch.int64)
+    i0 = start.clamp(min=0)
+    gap = torch.where(rel >= i0, rel + 1, i0)  # the first slot not done (or s)
+    n = torch.where(i0 < s, (gap + 1).clamp(max=s) - i0, 0)
+    return int(n.sum().item()) * (2 if executed is not None else 1) + b * 12
+
+
+def unfused_frontier(status, threshold, upto, wb, executed=None):
+    """``ops/scan.py advance_frontier``'s function as the steps composed
+    it before the fusion, timed beside it as ``unfused_ms``: the eager
+    operand and start around a ``commit_frontier`` launch, then the eager
+    max."""
+    from minpaxos_tpu_torch.ops import scan
+
+    done = status >= threshold
+    if executed is not None:
+        done = executed | done
+    rel = scan.commit_frontier(done, upto + 1 - wb)
+    return torch.maximum(upto, rel + wb)
 
 
 def exec_cases(b: int, s: int, e: int, seed: int, dev) -> dict:
@@ -646,6 +717,41 @@ def compare_kernels(dev, seed: int, sh: Shapes) -> tuple[dict, float]:
         ops=int((got.to(torch.int64) - start + 2).clamp(min=1).sum().item()),
         shapes=f"committed [{B},{S}], start [{B}] -> [{B}]")
 
+    # K3: the steps' frontier update in one launch (the operand, the
+    # start, the scan and the max), on the families of ops/scan.py
+    # frontier_families (a round's run then a gap the headline), the
+    # COMMITTED form and the EXECUTED form with ``executed`` (Mencius's
+    # executed frontier), each held to the twin over repeated launches
+    # and timed beside unfused_ms, the same function as the steps
+    # composed it before
+    from minpaxos_tpu_torch.wire.messages import COMMITTED, EXECUTED
+
+    fams = scan.frontier_families(np.random.default_rng(seed), B, S, names=FRONTIER_CASES)
+    for name in FRONTIER_CASES:
+        st_, up_, wb_, ex_ = (torch.from_numpy(x).to(dev) for x in fams[name])
+        for form, thr, ex in (("", COMMITTED, None), ("_executed", EXECUTED, ex_)):
+            af_k = lambda a=(st_, thr, up_, wb_, ex): scan.advance_frontier(*a)  # noqa: E731
+            af_p = lambda a=(st_, thr, up_, wb_, ex): scan._advance_frontier_plain(*a)  # noqa: E731
+            want = af_p()
+            nb = frontier_bytes(st_, thr, up_, wb_, ex)
+            row = dict(err=max(max_abs_err(af_k(), want), repeat_err(af_k, want)),
+                       **(times(af_k, af_p) if name + form == FRONTIER_CASES[0]
+                          else dict(ms=graph_ms(af_k))),
+                       unfused_ms=graph_ms(lambda a=(st_, thr, up_, wb_, ex):
+                                           unfused_frontier(*a)),
+                       bytes=nb, advanced=int((want > up_).sum().item()))
+            if name + form == FRONTIER_CASES[0]:
+                res["advance_frontier"] = dict(
+                    row, cases={},
+                    ops=nb,  # a compare per status byte read
+                    shapes=f"status u8 [{B},{S}], upto/window_base [{B}] -> [{B}]; "
+                           f"threshold COMMITTED (cases: EXECUTED with executed "
+                           f"bool [{B},{S}])")
+            else:
+                res["advance_frontier"]["cases"][name + form] = row
+                res["advance_frontier"]["err"] = max(res["advance_frontier"]["err"],
+                                                     row["err"])
+
     # K1: the routing fabric over [12, G, N] pooled rows (not on the
     # TCP path: there the transport delivers the rows)
     if sh.path != "tcp":
@@ -848,11 +954,39 @@ def compare_kernels(dev, seed: int, sh: Shapes) -> tuple[dict, float]:
     sv_ok = rb(0.3, (B, M))
     sv_k = lambda: ackruns.scatter_vote_bits(S, sv_idx, a_src, sv_ok, R)  # noqa: E731
     sv_p = lambda: ackruns._scatter_vote_bits_plain(S, sv_idx, a_src, sv_ok, R)  # noqa: E731
-    res["scatter_vote_bits"] = dict(
-        err=max_abs_err(sv_k(), sv_p()), **times(sv_k, sv_p),
+    # the form without ``into`` (no path launches it), as it stood alone
+    res["scatter_vote_bits_alone"] = dict(
+        err=max(max_abs_err(sv_k(), sv_p()), repeat_err(sv_k, sv_p())), **times(sv_k, sv_p),
         bytes=B * M * (4 + 4 + 1) + B * S * 4,
         ops=B * M * 4 + B * S,  # bound checks, shift, or; the zero fill
         shapes=f"idx/src/valid [{B},{M}] -> [{B},{S}]")
+    # K5: the pvotes scatter fused with the OR into the [B, S] pvotes
+    # table, as the steps call it, on the families of ops/ackruns.py
+    # pvote_families (the steady state, no valid row, the headline),
+    # each held to the twin over repeated launches and timed beside
+    # unfused_ms: the form without ``into`` followed by the eager OR
+    fams = ackruns.pvote_families(np.random.default_rng(seed), B, M, S, R, names=PVOTE_CASES)
+    for name in PVOTE_CASES:
+        idx_, src_, ok_, into_ = (torch.from_numpy(x).to(dev) for x in fams[name])
+        pv_k = lambda a=(idx_, src_, ok_, into_): ackruns.scatter_vote_bits(  # noqa: E731
+            S, *a[:3], R, into=a[3])
+        pv_p = lambda a=(idx_, src_, ok_, into_): ackruns._scatter_vote_bits_plain(  # noqa: E731
+            S, *a[:3], R, a[3])
+        want = pv_p()
+        row = dict(err=max(max_abs_err(pv_k(), want), repeat_err(pv_k, want)),
+                   **(times(pv_k, pv_p) if name == PVOTE_CASES[0] else dict(ms=graph_ms(pv_k))),
+                   unfused_ms=graph_ms(lambda a=(idx_, src_, ok_, into_):
+                                       a[3] | ackruns.scatter_vote_bits(S, *a[:3], R)),
+                   bytes=pvote_bytes(ok_, S, into_), valid_rows=int(ok_.sum().item()))
+        if name == PVOTE_CASES[0]:
+            res["scatter_vote_bits"] = dict(
+                row, cases={},
+                ops=int(ok_.sum().item()) * 4,  # per valid row: bound checks, shift, or
+                shapes=f"idx/src/valid [{B},{M}], pvotes [{B},{S}] -> pvotes [{B},{S}]; "
+                       f"fused with the OR")
+        else:
+            res["scatter_vote_bits"]["cases"][name] = row
+            res["scatter_vote_bits"]["err"] = max(res["scatter_vote_bits"]["err"], row["err"])
 
     if sh.path == "mencius":
         # K6: the exec selector over [B, S] windows: duplicate keys from
@@ -1291,6 +1425,7 @@ def dispatch_profile(cfg, state, inbox, n: int = 10) -> dict:
                 dispatch_wall_ms_profiled=1e3 * wall / n,
                 dispatch_kernel_launches=sum(e.count for e in events) / n,
                 own_kernels_per_dispatch=own_kernels(events, n),
+                scatter_vote_bits_in_place=scatter_in_place(prof, n),
                 dispatch_inbox_rows=int((inbox.kind != 0).sum().item()))
 
 
@@ -1439,6 +1574,8 @@ REPLACES = {
                      "minpaxos_tpu/ops/scan.py:21"),
     "commit_frontier": ("minpaxos_tpu_torch/kernels/csrc/scan.cu",
                         "minpaxos_tpu/ops/scan.py:50"),
+    "advance_frontier": ("minpaxos_tpu_torch/kernels/csrc/scan.cu",
+                         "minpaxos_tpu/models/minpaxos.py:900"),
     "kv_segments": ("minpaxos_tpu_torch/kernels/csrc/scan.cu",
                     "minpaxos_tpu/ops/kvstore.py:276"),
     "kv_lookup": ("minpaxos_tpu_torch/kernels/csrc/kvstore.cu",
@@ -1484,6 +1621,32 @@ def own_kernels(events, n: int) -> dict:
     return {k: dict(ms=ms, launches=c) for k, (ms, c) in sorted(out.items())}
 
 
+def scatter_in_place(prof, n: int) -> dict:
+    """K5 scatter_vote_bits in place, per round over ``n`` rounds, from
+    the profiler's device events in stream order: the kernel, a memset
+    launched just before it and an int32 bitwise OR just after it (a
+    form that zero-fills its delta and leaves the OR into pvotes to an
+    eager op pays both; the fused form neither)."""
+    evs = sorted((e for e in prof.events() if e.device_type.name == "CUDA"),
+                 key=lambda e: e.time_range.start)
+
+    def us(e):
+        return e.time_range.end - e.time_range.start
+
+    k = m = o = 0.0
+    count = 0
+    for i, e in enumerate(evs):
+        if e.name.removeprefix("void ").startswith("mp_scatter_vote_bits_k"):
+            count += 1
+            k += us(e)
+            if i > 0 and "Memset" in evs[i - 1].name:
+                m += us(evs[i - 1])
+            if i + 1 < len(evs) and "BitwiseOrFunctor<int>" in evs[i + 1].name:
+                o += us(evs[i + 1])
+    return dict(launches=count / n, kernel_ms=k / 1e3 / n, memset_ms=m / 1e3 / n,
+                eager_or_ms=o / 1e3 / n, total_ms=(k + m + o) / 1e3 / n)
+
+
 def profile_rounds(sc, rounds: int, p: int, out_dir: str, tag: str) -> dict:
     """torch.profiler over ``rounds`` steady rounds of the resident loop
     at ``p`` proposals: device time by kernel name and the device busy
@@ -1514,7 +1677,8 @@ def profile_rounds(sc, rounds: int, p: int, out_dir: str, tag: str) -> dict:
                 kernel_launches_per_round=sum(e.count for e in events) / rounds,
                 device_busy_share=(total_us / 1e6) / wall if wall else None,
                 top_kernels_ms_per_round={k: v / 1e3 / rounds for k, v in top},
-                own_kernels_per_round=own)
+                own_kernels_per_round=own,
+                scatter_vote_bits_in_place=scatter_in_place(prof, rounds))
 
 
 def read_back(sc, dev, seed: int, round0: int, rounds: int, p: int, ext: int,

@@ -4,7 +4,9 @@
 // (:25-61); range_vote_coverage (:64-124) fused with pack_vote_bits
 // (:127-137) and with the OR of the bits into the votes table
 // (models/minpaxos.py:875, models/mencius.py:416, there under the
-// driven-slot mask); and scatter_vote_bits (:140-150). Stride 1 for
+// driven-slot mask); and scatter_vote_bits (:140-150) fused with the OR
+// of its delta into pvotes (models/minpaxos.py:493,
+// models/mencius.py:498). Stride 1 for
 // MinPaxos and classic, stride R for Mencius. Rows are [B, M]
 // int32/bool; votes are int32 [B, S] bit masks (bit r = replica r).
 //
@@ -12,7 +14,8 @@
 // run-key columns of ACCEPT rows, and writes two columns; vote bits read
 // the valid flags of every row, three columns of the valid rows, and
 // write one int per slot (reading the votes row and the mask too when
-// fused).
+// fused); the pvotes scatter reads the valid flags of every row, two
+// columns of the valid rows, the pvotes row, and writes one int per slot.
 // Design:
 // * ack_runs: one block per batch row; each thread owns C consecutive
 //   rows, loaded as 16-byte vectors (a chunk with no ACCEPT row loads
@@ -45,9 +48,18 @@
 //   a time and ORs them into its votes (under the mask) with 16-byte
 //   loads and stores. The [B, S, R] coverage never reaches device
 //   memory, nor do the unmerged bits.
-// * scatter_vote_bits: a memset, then one thread per row and atomicOr
-//   of 1 << src into its slot: order-free, so duplicates and several
-//   senders per slot give the same mask.
+// * scatter_vote_bits, fused with the OR into the pvotes table: one
+//   block per (batch row, tile of 1,024 slots), no memset and no global
+//   atomics. The block first asks whether its row holds any valid row
+//   (16-byte loads of the flags, one __syncthreads_or), with its
+//   16-byte word of the votes already in flight. A row with none (every
+//   row outside an election or a takeover) copies its tile of the votes
+//   (or writes zeros) and stops. A row with valid rows takes the tile
+//   into shared memory and ORs 1 << clamp(src) into each slot of the
+//   tile a valid row names: order-free, so duplicates and several
+//   senders per slot give the same mask. An index in [-size, 0) counts
+//   from the end, as JAX's scatter takes it; any other index outside
+//   [0, size) is dropped.
 #include <algorithm>
 
 #include "common.cuh"
@@ -605,32 +617,85 @@ MP_EXPORT int mp_range_vote_bits(const unsigned char* valid, const int* src,
 
 // --------------------------------------------------- scatter_vote_bits
 
-__global__ void mp_scatter_vote_bits_k(const int* __restrict__ idx,
-                                       const int* __restrict__ src,
-                                       const unsigned char* __restrict__ valid,
-                                       int* __restrict__ out, long long n,
-                                       int m, int size, int R) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || !valid[i]) return;
-  const int t = idx[i];
-  if (t < 0 || t >= size) return;
-  const int sr = src[i] < 0 ? 0 : (src[i] > R - 1 ? R - 1 : src[i]);
-  atomicOr(out + (i / m) * (long long)size + t, 1 << sr);
+constexpr int SV_NT = 256;  // threads a block
+// slots a block: one 16-byte word of int32 votes a thread, 4 KB of shared
+constexpr int SV_TILE = 4 * SV_NT;
+// flags: the valid flags read as 16-byte words; the slots as 16-byte words
+constexpr int SV_VALID16 = 1, SV_VEC4 = 2;
+
+__global__ void __launch_bounds__(SV_NT)
+mp_scatter_vote_bits_k(const int* __restrict__ idx, const int* __restrict__ src,
+                       const unsigned char* __restrict__ valid,
+                       const int* __restrict__ into, int* __restrict__ out,
+                       int m, int size, int R, int tiles, int flags) {
+  __shared__ __align__(16) int tile[SV_TILE];
+  const int tid = threadIdx.x;
+  const long long row = blockIdx.x / tiles;
+  const int t0 = (int)(blockIdx.x % tiles) * SV_TILE;
+  const int n = min(SV_TILE, size - t0);  // slots of this tile
+  const unsigned char* vr = valid + row * m;
+  const int* irow = into != nullptr ? into + row * size + t0 : nullptr;
+  int* orow = out + row * size + t0;
+  const bool vec = flags & SV_VEC4;
+  // the thread's votes, loaded before the count so both are in flight
+  int4 v4 = make_int4(0, 0, 0, 0);
+  if (vec && irow != nullptr && 4 * tid < n)
+    v4 = reinterpret_cast<const int4*>(irow)[tid];
+  // does the row hold a valid row at all (bool bytes are 0 or 1)
+  unsigned any = 0;
+  if (flags & SV_VALID16) {
+    for (int i = tid; i < m / 16; i += SV_NT) {
+      const uint4 w = reinterpret_cast<const uint4*>(vr)[i];
+      any |= w.x | w.y | w.z | w.w;
+    }
+  } else {
+    for (int i = tid; i < m; i += SV_NT) any |= vr[i];
+  }
+  if (!__syncthreads_or(any != 0)) {
+    // the steady state: the tile of ``into`` (or zeros) copied through
+    if (vec) {
+      if (4 * tid < n) reinterpret_cast<int4*>(orow)[tid] = v4;
+    } else {
+      for (int s = tid; s < n; s += SV_NT) orow[s] = irow != nullptr ? irow[s] : 0;
+    }
+    return;
+  }
+  if (vec) {
+    if (4 * tid < n) reinterpret_cast<int4*>(tile)[tid] = v4;
+  } else {
+    for (int s = tid; s < n; s += SV_NT) tile[s] = irow != nullptr ? irow[s] : 0;
+  }
+  __syncthreads();
+  const long long base = row * m;
+  for (int i = tid; i < m; i += SV_NT) {
+    if (!vr[i]) continue;
+    int t = idx[base + i];
+    if (t < 0) t += size;  // a negative index counts from the end, once
+    t -= t0;
+    if (t < 0 || t >= n) continue;  // another tile's, or outside [0, size)
+    const int sr = src[base + i];
+    atomicOr(&tile[t], 1 << (sr < 0 ? 0 : (sr > R - 1 ? R - 1 : sr)));
+  }
+  __syncthreads();
+  if (vec) {
+    if (4 * tid < n) reinterpret_cast<int4*>(orow)[tid] = reinterpret_cast<const int4*>(tile)[tid];
+  } else {
+    for (int s = tid; s < n; s += SV_NT) orow[s] = tile[s];
+  }
 }
 
 MP_EXPORT int mp_scatter_vote_bits(const int* idx, const int* src,
-                                   const unsigned char* valid, int* out,
-                                   long long rows, int m, int size, int R,
-                                   cudaStream_t s) {
-  if (R < 1 || R > 16) return MP_ERR_SHAPE;
-  const long long n_out = rows * (long long)size;
-  if (n_out > 0) {
-    cudaError_t e = cudaMemsetAsync(out, 0, (size_t)n_out * 4, s);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const long long n = rows * (long long)m;
-  if (n > 0)
-    mp_scatter_vote_bits_k<<<mp_grid(n, 256), 256, 0, s>>>(idx, src, valid, out,
-                                                           n, m, size, R);
+                                   const unsigned char* valid, const int* into,
+                                   int* out, long long rows, int m, int size,
+                                   int R, cudaStream_t s) {
+  if (R < 1 || R > 16 || m < 0 || size < 0) return MP_ERR_SHAPE;
+  if (rows <= 0 || size == 0) return (int)cudaGetLastError();
+  const int tiles = (size + SV_TILE - 1) / SV_TILE;
+  if (rows * tiles > 0x7fffffffLL) return MP_ERR_SHAPE;
+  const int flags =
+      (m % 16 == 0 && (uintptr_t)valid % 16 == 0 ? SV_VALID16 : 0) |
+      (size % 4 == 0 && (((uintptr_t)out | (uintptr_t)into) % 16) == 0 ? SV_VEC4 : 0);
+  mp_scatter_vote_bits_k<<<(int)(rows * tiles), SV_NT, 0, s>>>(
+      idx, src, valid, into, out, m, size, R, tiles, flags);
   return (int)cudaGetLastError();
 }

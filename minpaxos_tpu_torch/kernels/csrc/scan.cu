@@ -4,13 +4,17 @@
 // Replaces ops/scan.py: segmented_scan_max and
 // exclusive_segmented_scan_max (a lax.associative_scan over the
 // segmented-max monoid) and commit_frontier (a prefix-AND over the
-// [B, S] committed window); and, fused in one launch, the segment work
+// [B, S] committed window), and with it the frontier updates of the
+// steps (models/minpaxos.py:900-904, models/mencius.py:529-533 and
+// :900-903: the operand, the start and the max in the same launch);
+// and, fused in one launch, the segment work
 // of ops/kvstore.py kv_apply_batch_lanes (:270-308): the segment starts
 // from rolled keys, the exclusive scan for each row's last earlier
 // write, and the reversed scan for each key's final writer.
 //
 // Bound: bytes; a scan reads each value and flag once and writes one
-// value, and the frontier needs only the committed prefix of each row.
+// value, and the frontier needs only the slots from the start through
+// the first gap of each row (both operands' when executed is given).
 // At the apply's shapes (E <= 512 a row) every launch is near its
 // launch floor, so the design cuts launches and barriers.
 // Design:
@@ -27,8 +31,16 @@
 //   serial pass over the lane's bits and one shuffle scan across the
 //   lanes. Positions only grow along a row, so a segment's max write
 //   position is its last write.
-// * commit_frontier: a block-wide min over the first uncommitted index
-//   at or after the start.
+// * commit_frontier, and advance_frontier (the step's whole frontier
+//   update: the operand status >= threshold [| executed], the start
+//   upto + 1 - window_base, the scan and the max with upto, in one
+//   launch): one warp per batch row, 8 rows a block, no shared memory,
+//   no atomics and no barrier. From the 16-byte chunk that holds the
+//   start, each lane takes 16 slots (16-byte loads where the row is
+//   aligned), compares the bytes four at a time in registers (slots
+//   before the start masked off), and one __ballot_sync finds the first
+//   lane with a gap; the warp steps 512 slots a time until a gap or the
+//   window's end.
 #include "common.cuh"
 
 struct SP {
@@ -374,34 +386,108 @@ MP_EXPORT int mp_kv_segments(const int* khi, const int* klo,
   return (int)cudaGetLastError();
 }
 
-__global__ void mp_commit_frontier_k(const unsigned char* __restrict__ committed,
-                                     const int* __restrict__ start,
-                                     int* __restrict__ out, int n) {
-  __shared__ int first_s;
-  const long long row = blockIdx.x;
-  const unsigned char* c = committed + row * n;
-  const int st = start[row];
+// --------------------------------------------------- commit_frontier
+
+constexpr int CF_WARPS = 8;  // batch rows (warps) per block
+
+// Four words of the 16 bytes at p, bytes [0, n) of them (n <= 16), the
+// rest 0: one 16-byte load when whole and ``vec``.
+__device__ __forceinline__ void cf_load16(const unsigned char* p, int n, bool vec,
+                                          unsigned (&w)[4]) {
+  if (vec && n == 16) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    unsigned x = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (4 * q + k < n) x |= (unsigned)p[4 * q + k] << (8 * k);
+    w[q] = x;
+  }
+}
+
+// One warp per batch row: out = the largest f with every slot of
+// [start, f] done, else start - 1 (the slots before 0 not looked at).
+// Done: status >= thr, or executed (when given). With ``upto`` the start
+// is upto + 1 - wbase and out = max(upto, f + wbase) (int32 wrapping, as
+// JAX's); else the start is ``start`` and out = f.
+__global__ void __launch_bounds__(32 * CF_WARPS)
+mp_frontier_k(const unsigned char* __restrict__ status,
+              const unsigned char* __restrict__ executed, unsigned thr,
+              const int* __restrict__ start, const int* __restrict__ upto,
+              const int* __restrict__ wbase, int* __restrict__ out,
+              long long rows, int S, int vec) {
+  const long long row = (long long)blockIdx.x * CF_WARPS + (threadIdx.x >> 5);
+  if (row >= rows) return;  // a whole warp leaves together
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int up = upto != nullptr ? upto[row] : 0;
+  const int wb = upto != nullptr ? wbase[row] : 0;
+  const int st = upto != nullptr ? (int)((unsigned)up + 1u - (unsigned)wb) : start[row];
   const int i0 = st > 0 ? st : 0;
-  if (threadIdx.x == 0) first_s = n;
-  __syncthreads();
-  for (int i = i0 + threadIdx.x; i < n; i += blockDim.x) {
-    if (!c[i]) {
-      atomicMin(&first_s, i);
+  const unsigned char* srow = status + row * S;
+  const unsigned char* erow = executed != nullptr ? executed + row * S : nullptr;
+  const unsigned thr4 = thr * 0x01010101u;
+  int first = S;  // the first slot at or after i0 that is not done
+  for (int base = i0 & ~15; base < S; base += 512) {
+    const int c = base + 16 * lane;  // the lane's 16 slots
+    const int n = min(max(S - c, 0), 16), lo = min(max(i0 - c, 0), 16);
+    unsigned sw[4], ew[4] = {0, 0, 0, 0};
+    cf_load16(srow + c, n, vec, sw);
+    if (erow != nullptr) cf_load16(erow + c, n, vec, ew);
+    int pos = 16;  // the lane's first gap
+#pragma unroll
+    for (int q = 3; q >= 0; --q) {
+      const unsigned ix = 0x03020100u + 0x04040404u * q;  // the bytes' indices
+      const unsigned live = __vcmpgeu4(ix, lo * 0x01010101u) & __vcmpltu4(ix, n * 0x01010101u);
+      const unsigned gap = live & ~(__vcmpgeu4(sw[q], thr4) | __vcmpne4(ew[q], 0u));
+      if (gap) pos = 4 * q + ((__ffs(gap) - 1) >> 3);
+    }
+    const unsigned hit = __ballot_sync(full, pos < 16);
+    if (hit) {
+      const int l = __ffs(hit) - 1;
+      first = base + 16 * l + __shfl_sync(full, pos, l);
       break;
     }
-    if (i > *(volatile int*)&first_s) break;  // a smaller zero exists
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const int f = first_s;
-    out[row] = (i0 < n && f > i0) ? f - 1 : st - 1;
+  if (lane == 0) {
+    const int f = (i0 < S && first > i0) ? first - 1 : (int)((unsigned)st - 1u);
+    if (upto == nullptr) {
+      out[row] = f;
+    } else {
+      const int g = (int)((unsigned)f + (unsigned)wb);
+      out[row] = g > up ? g : up;
+    }
   }
+}
+
+static int cf_launch(const unsigned char* status, const unsigned char* executed,
+                     unsigned thr, const int* start, const int* upto,
+                     const int* wbase, int* out, long long rows, int n,
+                     cudaStream_t s) {
+  if (n < 0 || thr > 255) return MP_ERR_SHAPE;
+  if (rows <= 0) return (int)cudaGetLastError();
+  const long long grid = (rows + CF_WARPS - 1) / CF_WARPS;
+  if (grid > 0x7fffffffLL) return MP_ERR_SHAPE;
+  const int vec = n % 16 == 0 && (((uintptr_t)status | (uintptr_t)executed) % 16) == 0;
+  mp_frontier_k<<<(int)grid, 32 * CF_WARPS, 0, s>>>(status, executed, thr, start, upto,
+                                                      wbase, out, rows, n, vec);
+  return (int)cudaGetLastError();
 }
 
 MP_EXPORT int mp_commit_frontier(const unsigned char* committed,
                                  const int* start, int* out, long long rows,
                                  int n, cudaStream_t s) {
-  if (rows > 0)
-    mp_commit_frontier_k<<<(int)rows, 256, 0, s>>>(committed, start, out, n);
-  return (int)cudaGetLastError();
+  return cf_launch(committed, nullptr, 1u, start, nullptr, nullptr, out, rows, n, s);
+}
+
+MP_EXPORT int mp_advance_frontier(const unsigned char* status,
+                                  const unsigned char* executed, int thr,
+                                  const int* upto, const int* wbase, int* out,
+                                  long long rows, int n, cudaStream_t s) {
+  if (thr < 0) return MP_ERR_SHAPE;
+  return cf_launch(status, executed, (unsigned)thr, nullptr, upto, wbase, out, rows, n, s);
 }

@@ -43,7 +43,7 @@ from minpaxos_tpu_torch.ops.ackruns import (
 )
 from minpaxos_tpu_torch.ops.kvstore import KVState, kv_apply_batch, kv_init
 from minpaxos_tpu_torch.ops.mencius_exec import exec_select
-from minpaxos_tpu_torch.ops.scan import commit_frontier
+from minpaxos_tpu_torch.ops.scan import advance_frontier
 from minpaxos_tpu_torch.ops.util import (
     I32,
     argmin_first,
@@ -348,7 +348,7 @@ def mencius_step_impl(cfg: MinPaxosConfig, state: MenciusState, inbox: MsgBatch,
 
     # ---- 7b. PREPARE_INST_REPLY answers to my takeover ----
     pv_ok = is_pir & (inbox.last_committed == col(st.takeover_ballot)) & in_win
-    st.pvotes = st.pvotes | scatter_vote_bits(S, rel_a, inbox.src, pv_ok, R)
+    st.pvotes = scatter_vote_bits(S, rel_a, inbox.src, pv_ok, R, into=st.pvotes)
     pir_ok = (pv_ok & (at(st.status) < COMMITTED) & (inbox.ballot > NO_BALLOT)
               & (inbox.ballot > at(st.ballot)))
     vb_max = scatter_max(S, rel_a, inbox.ballot, pir_ok, NO_BALLOT)
@@ -364,9 +364,8 @@ def mencius_step_impl(cfg: MinPaxosConfig, state: MenciusState, inbox: MsgBatch,
     my_commit = driven_by_me & (st.status == ACCEPTED) & (n_votes >= quorum2)
     st.status = where(my_commit, COMMITTED, st.status)
     old_upto = st.committed_upto
-    frontier_rel = commit_frontier(st.status >= COMMITTED,
-                                   st.committed_upto + 1 - st.window_base)
-    st.committed_upto = torch.maximum(st.committed_upto, frontier_rel + st.window_base)
+    st.committed_upto = advance_frontier(st.status, COMMITTED, st.committed_upto,
+                                         st.window_base)
     advanced = st.committed_upto > old_upto
     in_flight = st.crt_inst - 1 > st.committed_upto
     st.tick = st.tick + tick_inc
@@ -505,9 +504,8 @@ def mencius_step_impl(cfg: MinPaxosConfig, state: MenciusState, inbox: MsgBatch,
     st.kv = kv
     st.executed = st.executed | newly_exec
     st.status = where(newly_exec, EXECUTED, st.status)
-    ex_rel = commit_frontier(st.executed | (st.status >= EXECUTED),
-                             st.executed_upto + 1 - st.window_base)
-    st.executed_upto = torch.maximum(st.executed_upto, ex_rel + st.window_base)
+    st.executed_upto = advance_frontier(st.status, EXECUTED, st.executed_upto,
+                                        st.window_base, executed=st.executed)
     execr = ExecResult(
         lo=exec_lo, count=evalid.sum(1, dtype=I32), val_hi=o_hi, val_lo=o_lo,
         found=o_found, op=op_e,

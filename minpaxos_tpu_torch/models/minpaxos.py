@@ -41,7 +41,7 @@ from minpaxos_tpu_torch.ops.ackruns import (
     scatter_vote_bits,
 )
 from minpaxos_tpu_torch.ops.kvstore import KVState, kv_apply_batch, kv_init
-from minpaxos_tpu_torch.ops.scan import commit_frontier
+from minpaxos_tpu_torch.ops.scan import advance_frontier
 from minpaxos_tpu_torch.ops.util import (
     I32,
     argmax_first,
@@ -351,7 +351,7 @@ def replica_step_impl(cfg: MinPaxosConfig, state: ReplicaState, inbox: MsgBatch,
 
     pv_ok = (is_pir & col(is_leader())
              & (inbox.last_committed == col(st.default_ballot)) & in_win_i)
-    st.pvotes = st.pvotes | scatter_vote_bits(S, rel_i, inbox.src, pv_ok, R)
+    st.pvotes = scatter_vote_bits(S, rel_i, inbox.src, pv_ok, R, into=st.pvotes)
     pir_ok = (pv_ok & (at_rel(st.status) < COMMITTED)
               & (inbox.ballot > at_rel(st.ballot)))
     vb_max = scatter_max(S, rel_i, inbox.ballot, pir_ok, NO_BALLOT)
@@ -536,11 +536,9 @@ def replica_step_impl(cfg: MinPaxosConfig, state: ReplicaState, inbox: MsgBatch,
                        & (st.ballot == col(st.default_ballot)))
     st.status = where(leader_commit | follower_commit,
                       COMMITTED, st.status)
-    start_rel = st.committed_upto + 1 - st.window_base
-    frontier_rel = commit_frontier(st.status >= COMMITTED, start_rel)
     old_upto = st.committed_upto
-    st.committed_upto = torch.maximum(st.committed_upto,
-                                      frontier_rel + st.window_base)
+    st.committed_upto = advance_frontier(st.status, COMMITTED, st.committed_upto,
+                                         st.window_base)
 
     # ---- 7b. frontier gossip + stall tracking ----
     advanced = st.committed_upto > old_upto

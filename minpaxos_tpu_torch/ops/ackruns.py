@@ -9,11 +9,13 @@ classic, R for Mencius, whose owners drive every R-th slot).
 
 On CUDA tensors ``compress_ack_runs``, ``range_vote_bits`` (coverage,
 packing and the OR into the votes table fused: the [B, S, R] bool plane
-never reaches device memory) and ``scatter_vote_bits`` launch
+never reaches device memory) and ``scatter_vote_bits`` (with the OR
+into the pvotes table fused) launch
 ``kernels/csrc/ackruns.cu``; on the CPU they run the plain versions
 below, where masked scatters go to an explicit sink column instead of
-JAX's ``mode="drop"``. ``ack_families`` makes the seeded input families
-that the tests and ``chip_smoke.py`` hold the kernels to.
+JAX's ``mode="drop"``. ``ack_families`` and ``pvote_families`` make the
+seeded input families that the tests and ``chip_smoke.py`` hold the
+kernels to.
 """
 
 from __future__ import annotations
@@ -191,42 +193,102 @@ def range_vote_bits(valid, src, inst, count, window_base, window: int,
                              n_replicas, stride, into, mask)
 
 
-def _scatter_vote_bits_plain(size, idx, src, valid, n_replicas):
+def _scatter_vote_bits_plain(size, idx, src, valid, n_replicas, into=None):
     r = n_replicas
     b = idx.shape[0]
     d = torch.zeros((b, (r + 1) * (size + 1)), dtype=torch.bool, device=idx.device)
     row = torch.where(valid, src.clamp(0, r - 1), r)
-    colm = torch.where(valid & (idx >= 0) & (idx <= size), idx, size)
+    # JAX's scatter counts an index in [-size, 0) from the end and drops
+    # any other outside [0, size)
+    t = torch.where(idx < 0, idx + size, idx)
+    colm = torch.where(valid & (t >= 0) & (t <= size), t, size)
     d.scatter_(1, (row * (size + 1) + colm).long(),
                torch.ones_like(valid))
     plane = d.view(b, r + 1, size + 1)[:, :r, :size]
-    return pack_vote_bits(plane.transpose(1, 2))
+    bits = pack_vote_bits(plane.transpose(1, 2))
+    return bits if into is None else into | bits
 
 
 @K.kernel("scatter_vote_bits")
-def _scatter_vote_bits_kernel(size, idx, src, valid, n_replicas):
+def _scatter_vote_bits_kernel(size, idx, src, valid, n_replicas, into=None):
     t = K.cuda_arg(idx, I32, "scatter_vote_bits idx")
     s = K.cuda_arg(src, I32, "scatter_vote_bits src")
     v = K.cuda_arg(valid, torch.bool, "scatter_vote_bits valid")
     if not (t.shape == s.shape == v.shape) or t.dim() != 2:
         raise ValueError("scatter_vote_bits: idx, src, valid must share a [B, M] shape")
     b, m = t.shape
+    into = None if into is None else K.cuda_arg(into, I32, "scatter_vote_bits into")
+    if into is not None and into.shape != (b, size):
+        raise ValueError(f"scatter_vote_bits: into must be [{b}, {size}]")
     out = torch.empty((b, size), dtype=I32, device=t.device)
     f_ = K.fn("ackruns", "mp_scatter_vote_bits",
-              [K.P] * 4 + [K.L, K.I, K.I, K.I, K.P])
-    rc = f_(K.ptr(t), K.ptr(s), K.ptr(v), K.ptr(out), b, m, int(size),
-            int(n_replicas), K.stream(t))
+              [K.P] * 5 + [K.L, K.I, K.I, K.I, K.P])
+    rc = f_(K.ptr(t), K.ptr(s), K.ptr(v), K.P(None) if into is None else K.ptr(into),
+            K.ptr(out), b, m, int(size), int(n_replicas), K.stream(t))
     K.check("ackruns", rc, "scatter_vote_bits")
     _scatter_vote_bits_kernel.launches += 1
     return out
 
 
-def scatter_vote_bits(size: int, idx, src, valid, n_replicas: int) -> torch.Tensor:
+def scatter_vote_bits(size: int, idx, src, valid, n_replicas: int,
+                      into=None) -> torch.Tensor:
     """OR-delta int32[B, size]: bit src[b, i] set at slot idx[b, i] for
-    every valid row; safe under duplicates and many senders per slot."""
-    if K.on_cpu(idx, src, valid):
-        return _scatter_vote_bits_plain(size, idx, src, valid, n_replicas)
-    return _scatter_vote_bits_kernel(size, idx, src, valid, n_replicas)
+    every valid row; safe under duplicates and many senders per slot. An
+    index in [-size, 0) counts from the end (as JAX's scatter takes it);
+    any other outside [0, size) is dropped. With ``into`` (an int32[B,
+    size] pvotes table) a new table ``into | bits``; ``into`` itself is
+    not changed."""
+    extra = () if into is None else (into,)
+    if K.on_cpu(idx, src, valid, *extra):
+        return _scatter_vote_bits_plain(size, idx, src, valid, n_replicas, into)
+    return _scatter_vote_bits_kernel(size, idx, src, valid, n_replicas, into)
+
+
+PVOTE_FAMILIES = ("no_valid", "random", "prepare", "edges")
+
+
+def pvote_families(rng, b: int, m: int, s: int, r: int, names=None) -> dict:
+    """``scatter_vote_bits`` input families as numpy, drawn from the numpy
+    generator ``rng``: each is (idx, src, valid, into) for ``b`` batch
+    rows of ``m`` inbox rows into a window of ``s`` slots of ``r``
+    replicas' bits. ``no_valid``: no valid row (the steady state of every
+    path: PREPARE_INST_REPLY arrives only in an election or a takeover).
+    ``random``: 30% of the rows valid, slots anywhere in the window.
+    ``prepare``: every row of every batch row valid, as after a prepare:
+    a run of slots, each named by every sender, a (slot, sender) pair
+    repeated, and 5 senders on one slot of each row. ``edges``: 30% valid, slots at -2, s and s + 3 (and every
+    other index in [-s - 3, s + 3]), senders outside [0, r - 1].
+    ``names`` picks some families (all by default); the CPU oracle test,
+    the card tests and ``chip_smoke.py`` share them."""
+    i32 = np.int32
+    out = {}
+    for name in names or PVOTE_FAMILIES:
+        idx = rng.integers(0, s, (b, m)).astype(i32)
+        src = rng.integers(0, r, (b, m)).astype(i32)
+        valid = rng.random((b, m)) < 0.3
+        if name == "no_valid":
+            valid[:] = False
+        elif name == "prepare":
+            valid[:] = True
+            start = rng.integers(0, max(s - m // r, 1), (b, 1))
+            idx = (start + np.arange(m)[None, :] // r).clip(0, s - 1).astype(i32)
+            src = np.broadcast_to(np.arange(m) % r, (b, m)).astype(i32).copy()
+            hot = rng.integers(0, s, b).astype(i32)
+            k = min(5, m)
+            idx[:, :k] = hot[:, None]
+            src[:, :k] = (np.arange(k) % r)[None, :]
+            # the same (slot, sender) three times over
+            idx[:, k + 1:k + 3] = idx[:, k:k + 1]
+            src[:, k + 1:k + 3] = src[:, k:k + 1]
+        elif name == "edges":
+            pick = rng.integers(0, 4, (b, m))
+            far = rng.integers(-s - 3, s + 4, (b, m))
+            idx = np.select([pick == 0, pick == 1, pick == 2],
+                            [np.full((b, m), -2), np.full((b, m), s),
+                             np.full((b, m), s + 3)], far).astype(i32)
+            src = rng.integers(-3, r + 3, (b, m)).astype(i32)
+        out[name] = (idx, src, valid, rng.integers(0, 1 << r, (b, s)).astype(i32))
+    return out
 
 
 ACK_FAMILIES = ("random", "leader_only", "one_long_run", "no_accept",

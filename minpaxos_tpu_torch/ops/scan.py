@@ -3,6 +3,10 @@
 - ``commit_frontier``: the prefix-AND over the committed window that
   gives the contiguous committed frontier (ops/scan.py of the JAX
   package, a cumulative pass there).
+- ``advance_frontier``: a step's whole frontier update (the operand
+  status >= threshold [| executed], the start, the scan and the max
+  with the old frontier) in one launch; the steps call it in place of
+  ``commit_frontier`` and the eager ops around it.
 - ``segmented_scan_max`` / ``exclusive_segmented_scan_max``: the
   segmented max-scan of the JAX package's KV engine (a
   ``lax.associative_scan`` there; PyTorch has no counterpart).
@@ -215,3 +219,103 @@ def commit_frontier(committed: torch.Tensor, start: torch.Tensor) -> torch.Tenso
     if K.on_cpu(committed, start):
         return _commit_frontier_plain(committed, start)
     return _commit_frontier_kernel(committed, start)
+
+
+def _advance_frontier_plain(status, threshold, upto, window_base, executed=None):
+    """The steps' frontier update as they composed it before the fusion
+    (JAX models/minpaxos.py:900-904)."""
+    done = status >= threshold
+    if executed is not None:
+        done = executed | done
+    rel = _commit_frontier_plain(done, upto + 1 - window_base)
+    return torch.maximum(upto, rel + window_base)
+
+
+@K.kernel("advance_frontier")
+def _advance_frontier_kernel(status, threshold, upto, window_base, executed=None):
+    st = K.cuda_arg(status, torch.uint8, "advance_frontier status")
+    up = K.cuda_arg(upto, I32, "advance_frontier upto")
+    wb = K.cuda_arg(window_base, I32, "advance_frontier window_base")
+    ex = None if executed is None else K.cuda_arg(executed, torch.bool,
+                                                  "advance_frontier executed")
+    rows, n = st.shape
+    if up.shape != (rows,) or wb.shape != (rows,) or (ex is not None and ex.shape != st.shape):
+        raise ValueError("advance_frontier: status (and executed) [B, S], upto and "
+                         "window_base [B]")
+    out = torch.empty(rows, dtype=I32, device=st.device)
+    f_ = K.fn("scan", "mp_advance_frontier", [K.P, K.P, K.I, K.P, K.P, K.P, K.L, K.I, K.P])
+    rc = f_(K.ptr(st), K.P(None) if ex is None else K.ptr(ex), int(threshold), K.ptr(up),
+            K.ptr(wb), K.ptr(out), rows, n, K.stream(st))
+    K.check("scan", rc, "advance_frontier")
+    _advance_frontier_kernel.launches += 1
+    return out
+
+
+def advance_frontier(status: torch.Tensor, threshold: int, upto: torch.Tensor,
+                     window_base: torch.Tensor, executed=None) -> torch.Tensor:
+    """A step's frontier update in one call: a new int32 [B] tensor
+    ``max(upto, commit_frontier(status >= threshold [| executed],
+    upto + 1 - window_base) + window_base)``, for a u8 [B, S] status
+    window (and a bool [B, S] ``executed``). ``upto`` is not changed."""
+    extra = () if executed is None else (executed,)
+    if K.on_cpu(status, upto, window_base, *extra):
+        return _advance_frontier_plain(status, threshold, upto, window_base, executed)
+    return _advance_frontier_kernel(status, threshold, upto, window_base, executed)
+
+
+FRONTIER_FAMILIES = ("path", "gap_at_start", "no_gap", "start_negative",
+                     "start_past_window", "unaligned_start", "executed")
+
+
+def frontier_families(rng, b: int, s: int, names=None) -> dict:
+    """``advance_frontier`` input families as numpy, drawn from the numpy
+    generator ``rng``: each is (status u8, upto, window_base, executed
+    bool) for ``b`` batch rows of a window of ``s`` slots; ``start`` =
+    upto + 1 - window_base. Status values are NONE..EXECUTED (0..5).
+    ``path``: a run of done slots (COMMITTED or EXECUTED) of up to twice
+    512 from a start in the window's first half, then a gap, as a
+    MinPaxos round leaves it. ``gap_at_start``: the slot at the start is
+    not done. ``no_gap``: every slot from the start to the window's end
+    done. ``start_negative``: the start below slot 0. ``start_past_window``:
+    the start at s or beyond. ``unaligned_start``: starts off every
+    16-byte boundary, runs ending on and off them. ``executed``:
+    a run of any status, executed wherever the status is below
+    EXECUTED, so the ``executed`` form's run goes on where
+    ``status >= EXECUTED`` alone stops. ``names`` picks some families (all by default); the CPU oracle
+    test, the card tests and ``chip_smoke.py`` share them."""
+    i32 = np.int32
+    out = {}
+    ix = np.arange(s)[None, :]
+    for name in names or FRONTIER_FAMILIES:
+        status = rng.integers(0, 6, (b, s)).astype(np.uint8)
+        executed = (status == 5) | (rng.random((b, s)) < 0.05)
+        wb = rng.integers(0, 1 << 20, b).astype(i32)
+        start = rng.integers(0, max(s // 2, 1), b)
+        run = rng.integers(0, 1024 + 1, b)
+        if name == "start_negative":
+            start = rng.integers(-40, 0, b)
+        elif name == "start_past_window":
+            start = s + rng.integers(0, 40, b)
+            start[::3] = s
+        elif name == "unaligned_start":
+            start = 16 * rng.integers(0, max(s // 32, 1), b) + rng.integers(1, 16, b)
+            run = 16 * rng.integers(0, 8, b) + rng.integers(0, 2, b) * rng.integers(1, 16, b)
+        elif name == "no_gap":
+            run = np.full(b, s)
+        elif name == "gap_at_start":
+            run = np.zeros(b, np.int64)
+        elif name == "executed":
+            run = rng.integers(0, 256 + 1, b)
+        lo = np.maximum(start, 0)[:, None]
+        inrun = (ix >= lo) & (ix < lo + run[:, None])
+        status = np.where(inrun, rng.integers(4, 6, (b, s)), status).astype(np.uint8)
+        if name == "executed":
+            # the run: every status, each slot below EXECUTED executed
+            status = np.where(inrun, rng.integers(0, 6, (b, s)), status).astype(np.uint8)
+            executed = executed | (inrun & (status < 5))
+        gap = (lo + run[:, None]) == ix
+        status = np.where(gap, rng.integers(0, 4, (b, s)), status).astype(np.uint8)
+        executed = np.where(gap, False, executed)
+        upto = (wb + start - 1).astype(i32)
+        out[name] = (status, upto, wb, executed)
+    return out

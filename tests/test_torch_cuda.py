@@ -17,9 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from minpaxos_tpu_torch.ops.ackruns import ACK_FAMILIES
+from minpaxos_tpu_torch.ops.ackruns import ACK_FAMILIES, PVOTE_FAMILIES
 from minpaxos_tpu_torch.ops.kvstore import LOOKUP_FAMILIES
-from minpaxos_tpu_torch.ops.scan import SEGMENT_FAMILIES
+from minpaxos_tpu_torch.ops.scan import FRONTIER_FAMILIES, SEGMENT_FAMILIES
 
 pytestmark = pytest.mark.cuda
 
@@ -372,6 +372,74 @@ def test_ackruns_kernels_on_families(dev, path, family):
             assert torch.equal(ackruns.range_vote_bits(*votes, s, r, stride=d, into=i, mask=k),
                                want)
     assert torch.equal(into, keep)
+
+
+# the pvotes scatter at each path's shape: batch rows, inbox rows, window,
+# replicas (odd sizes: rows and window off every vector width)
+_PV_SHAPES = {"minpaxos": (1280, 2176, 4096, 5), "mencius": (1280, 2112, 4096, 5),
+              "tcp": (1, 1024, 2048, 3), "golden": (5, 40, 64, 5),
+              "odd_sizes": (10, 601, 250, 5)}
+
+
+@pytest.mark.parametrize("family", PVOTE_FAMILIES)
+@pytest.mark.parametrize("path", list(_PV_SHAPES))
+def test_scatter_vote_bits_fused_on_families(dev, path, family):
+    """K5 scatter_vote_bits fused with the OR into pvotes, and alone, on
+    every family of ``ops/ackruns.py pvote_families`` at each path's
+    shape, launched 10 times each: every launch equals the twin, and
+    ``into`` is kept."""
+    from minpaxos_tpu_torch.ops import ackruns
+
+    b, m, s, r = _PV_SHAPES[path]
+    arrs = ackruns.pvote_families(np.random.default_rng(b + m + s), b, m, s, r,
+                                  names=(family,))[family]
+    idx, src, valid, into = (torch.from_numpy(x).to(dev) for x in arrs)
+    keep = into.clone()
+    for i in (into, None):
+        want = ackruns._scatter_vote_bits_plain(s, idx, src, valid, r, i)
+        for _ in range(10):
+            assert torch.equal(ackruns.scatter_vote_bits(s, idx, src, valid, r, into=i), want)
+    assert torch.equal(into, keep)
+    # the same rows one element into their storage (scalar loads)
+    shifted = [torch.cat([x.new_zeros(1), x.flatten()])[1:].view(x.shape)
+               for x in (idx, src, valid, into)]
+    assert torch.equal(ackruns.scatter_vote_bits(s, *shifted[:3], r, into=shifted[3]),
+                       ackruns._scatter_vote_bits_plain(s, *shifted[:3], r, shifted[3]))
+
+
+# the frontier at each path's shape: batch rows, window
+_CF_SHAPES = {"minpaxos": (1280, 4096), "mencius": (1280, 4096), "tcp": (1, 2048),
+              "golden": (5, 64), "odd_sizes": (10, 250)}
+
+
+@pytest.mark.parametrize("family", FRONTIER_FAMILIES)
+@pytest.mark.parametrize("path", list(_CF_SHAPES))
+def test_advance_frontier_on_families(dev, path, family):
+    """K3 advance_frontier (the COMMITTED form, and the EXECUTED form
+    with ``executed``) and the standalone commit_frontier on every family
+    of ``ops/scan.py frontier_families`` at each path's shape, launched
+    10 times each: every launch equals the twin, and ``upto`` is kept."""
+    from minpaxos_tpu_torch.ops import scan
+    from minpaxos_tpu_torch.wire.messages import COMMITTED, EXECUTED
+
+    b, s = _CF_SHAPES[path]
+    arrs = scan.frontier_families(np.random.default_rng(b + s), b, s, names=(family,))[family]
+    status, upto, wb, executed = (torch.from_numpy(x).to(dev) for x in arrs)
+    keep = upto.clone()
+    for thr, ex in ((COMMITTED, None), (EXECUTED, executed)):
+        want = scan._advance_frontier_plain(status, thr, upto, wb, ex)
+        for _ in range(10):
+            assert torch.equal(scan.advance_frontier(status, thr, upto, wb, executed=ex), want)
+    assert torch.equal(upto, keep)
+    committed, start = status >= COMMITTED, upto + 1 - wb
+    want = scan._commit_frontier_plain(committed, start)
+    for _ in range(10):
+        assert torch.equal(scan.commit_frontier(committed, start), want)
+    # the same windows one byte into their storage (scalar loads)
+    shifted = [torch.cat([x.new_zeros(1), x.flatten()])[1:].view(x.shape)
+               for x in (status, executed)]
+    assert torch.equal(scan.advance_frontier(shifted[0], EXECUTED, upto, wb, executed=shifted[1]),
+                       scan._advance_frontier_plain(*shifted[:1], EXECUTED, upto, wb, shifted[1]))
 
 
 _EX_SHAPES = [(64, 12), (100, 50), (4096, 320), (16384, 512)]

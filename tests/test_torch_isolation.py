@@ -26,6 +26,7 @@ def _port_files():
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "wall_ab.py")
     yield os.path.join(ROOT, "k5_ab.py")
+    yield os.path.join(ROOT, "profile_ab.py")
 
 
 def _modules():
@@ -43,7 +44,7 @@ def test_every_module_imports_with_jax_blocked():
         "sys.modules['minpaxos_tpu'] = None\n"
         f"sys.path.insert(0, {ROOT!r})\n"
         "import importlib\n"
-        f"for name in {sorted(_modules())!r} + ['chip_smoke', 'wall_ab']:\n"
+        f"for name in {sorted(_modules())!r} + ['chip_smoke', 'wall_ab', 'profile_ab']:\n"
         "    importlib.import_module(name)\n"
         "print('ok')\n")
     env = dict(os.environ)
@@ -128,6 +129,8 @@ def test_kernel_wrappers_never_fall_back_for_non_cpu_tensors():
     with pytest.raises(RuntimeError):
         ackruns.scatter_vote_bits(8, i, mi, b, 5)
     with pytest.raises(RuntimeError):
+        ackruns.scatter_vote_bits(8, i, i, b, 5, into=mi)
+    with pytest.raises(RuntimeError):
         mencius_exec.exec_select(i, i, mu, u, b, v, v, v, 4)
     with pytest.raises(RuntimeError, match="CUDA tensor"):
         ackruns._compress_kernel(b, i, i, b, None, 1)
@@ -138,7 +141,21 @@ def test_kernel_wrappers_never_fall_back_for_non_cpu_tensors():
     with pytest.raises(RuntimeError, match="CUDA tensor"):
         ackruns._scatter_vote_bits_kernel(8, i, i, b, 5)
     with pytest.raises(RuntimeError, match="CUDA tensor"):
+        ackruns._scatter_vote_bits_kernel(8, i, i, b, 5, into=i)
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
         mencius_exec._exec_select_kernel(i, i, u, u, b, v, v, v, 4)
+
+    # K3's frontier update: the same for its status, cursors and flags
+    from minpaxos_tpu_torch.ops import scan
+
+    with pytest.raises(RuntimeError):
+        scan.advance_frontier(mu, 4, v, v)
+    with pytest.raises(RuntimeError):
+        scan.advance_frontier(u, 5, v, v, executed=mb)
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        scan._advance_frontier_kernel(u, 4, v, v)
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        scan._advance_frontier_kernel(u, 5, v, v, executed=b)
 
 
 def test_serving_path_modules_are_walked():
