@@ -42,7 +42,13 @@ Phases, each printing one JSON line:
               families of ops/ackruns.py ack_families (random, the
               headline row; leader_only, the main path's; one_long_run),
               each timed, the eager OR's time beside the fused call's.
-              Besides: K7 at a batch of 1,280 replicas, K4 insert on
+              K7 at the TCP shape beside floor_ms (a one-element
+              zero_() in a graph: the least a launch takes), then at a
+              batch of 1,280 replicas on ops/substeps.py pack_cases (both
+              anchor forms, timed beside their bytes bound, and the
+              Mencius edge rows), then over 10 rounds of all these
+              launches in turns, its layout cache emptied before every
+              other round. Besides: K4 insert on
               2^18-way tables 90% full, K4 insert at each path's shapes
               on keys that share their first candidate bucket in groups
               of 2, 4 and 6 (the phase fails if no block contended, or
@@ -1429,21 +1435,49 @@ def dispatch_profile(cfg, state, inbox, n: int = 10) -> dict:
                 dispatch_inbox_rows=int((inbox.kind != 0).sum().item()))
 
 
-def compare_tcp(dev, seed: int) -> tuple[dict, dict]:
-    """K7 against its plain twin at one replica server's shapes (the
-    leader's row of a live exchange at TCP_SHAPE, timed), and at a batch
-    of 1,280 replicas with random anchor inputs of both protocol forms;
-    K4 insert on 2^18-way tables 90% full; K5 vote bits with five
-    replicas and K6 at the server's default window (16,384 slots), timed,
-    also on ``exec_cases``' windows.
-    Returns (the pack_outputs row, the extra checks, and under
-    ``_dispatch_probe`` the leader's state and real inbox of that
-    exchange for ``dispatch_profile``)."""
-    from types import SimpleNamespace as NS
+def pack_bytes(st, ob, ex) -> int:
+    """The bytes K7 must move for these inputs: each source column read
+    once to its valid length (int32, or one byte), each scalar source
+    once, the R peer commits, Mencius's status byte on the rows whose
+    rel the data puts in the window, and the packed row written once."""
+    from minpaxos_tpu_torch.ops import substeps
 
-    from minpaxos_tpu_torch.models import minpaxos as tmp
-    from minpaxos_tpu_torch.ops import ackruns, mencius_exec, substeps
-    from minpaxos_tpu_torch.ops import kvstore as kvs
+    b, m_out = ob.msgs.kind.shape
+    e, r = ex.val_hi.shape[1], st.peer_commits.shape[1]
+    cols = [*ob.msgs, ob.dst] + [getattr(ex, c) for c in substeps.EXEC_COLS]
+    n = sum(c.numel() * c.element_size() for c in cols)
+    n += b * min(ob.acked.shape[1], m_out) * ob.acked.element_size()
+    men = not hasattr(st, "leader_id")
+    scal = [st.committed_upto, st.window_base, st.crt_inst, st.kv.dropped, ex.lo,
+            ex.count, st.executed_upto, st.me] + (
+        [st.commit_sent, st.tk_anchor, st.crt_own] if men
+        else [st.leader_id, st.prepared, st.gossip_upto])
+    n += sum(t.numel() * t.element_size() for t in scal) + b * r * 4
+    if men:
+        nxt = st.commit_sent + 1
+        rel = nxt + torch.remainder(st.me - nxt, r) - st.window_base
+        n += int(((rel >= 0) & (rel < st.status.shape[1])).sum().item())
+    return n + 4 * b * substeps.row_width(m_out, e, r)
+
+
+# K7's batch compare: B = 1,280 replicas, outbox and inbox rows of the
+# MinPaxos path's inbox (M = 2,176, M_in = 1,664), S = 4,096, E = 512
+PACK_B, PACK_MO, PACK_MI = 1280, INBOX + EXT, INBOX
+
+
+def compare_pack(dev, seed: int) -> tuple[dict, dict, tuple]:
+    """K7 against its plain twin at one replica server's shapes (the
+    leader's row of a live exchange at TCP_SHAPE): device ms by graph
+    replay, host-issued ms, the plain twin's and torch.cat's, and
+    floor_ms, a one-element int32 zero_() in a graph, the least a
+    launch takes there. Where the package has ops/substeps.py
+    pack_cases (an older tree that profile_ab.py compares may not), at
+    B = 1,280 on its cases (both anchor forms and the Mencius edge
+    rows), each compared, the two forms timed beside their bytes.
+    Returns (the K7 row, the batch errors and, under ``_calls``, each
+    compared call with its plain result, and the dispatch probe: the
+    config, the leader's state before the step and its inbox)."""
+    from minpaxos_tpu_torch.ops import substeps
 
     cfg = tcp_cfg()
     best = None
@@ -1465,48 +1499,71 @@ def compare_tcp(dev, seed: int) -> tuple[dict, dict]:
            + [torch.stack([x.to(torch.int32) for x in substeps._scalar_columns(
                st, ex, st.window_base)], 1), st.peer_commits])
     lib = lambda: torch.cat(pre, 1)  # noqa: E731
-    err = max_abs_err(pk().clone(), pp())
+    want = pp()
+    err = max_abs_err(pk().clone(), want)
     w = out.shape[1]
-    row = dict(err=err, **times(pk, pp, lib),
-               # each source column read once (12 + dst int32 at Mout, acked
-               # 1 B at M_in, 5 int32 + 1 bool exec columns at E, ~20 scalars,
-               # R peer commits), the row written once
-               bytes=13 * 4 * m_out + m_in + TCP_E * 21 + 20 * 4
-               + TCP_N * 4 + w * 4,
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    row = dict(err=err, **times(pk, pp, lib), floor_ms=graph_ms(one.zero_),
+               bytes=pack_bytes(st, ob, ex),
                ops=w + 64,  # one move per output word; the anchor arithmetic
                executed_in_row=int(ex.count[0]),
                shapes=f"outbox [1,{m_out}] x 14, exec [1,{TCP_E}] x 6, scalars "
                       f"-> packed row [1,{w}]")
-    extra = {"_dispatch_probe": (cfg, prev, inbox)}
-    # K7 at a batch: random state scalars in both anchor forms
+    errs = {"_calls": {"tcp": (pk, want)}}
+    if hasattr(substeps, "pack_cases"):
+        rng = np.random.default_rng(seed + 1)
+        mo, e = PACK_MO, P
+        for name, c in substeps.pack_cases(rng, PACK_B, W, R, mo, PACK_MI, e).items():
+            stb, obb, exb = substeps.pack_case_tensors(c, dev)
+            outb = torch.empty((PACK_B, substeps.row_width(mo, e, R)), dtype=torch.int32,
+                               device=dev)
+            fn = lambda a=(stb, obb, exb, outb): substeps.pack_outputs(*a)  # noqa: E731
+            wb = substeps._pack_plain(stb, obb, exb, torch.empty_like(outb), stb.window_base)
+            errs[f"pack_outputs_batch_{name}"] = max_abs_err(fn().clone(), wb)
+            errs["_calls"][f"batch_{name}"] = (fn, wb)
+            if name in ("minpaxos", "mencius"):
+                row[f"batch_ms_{name}"] = graph_ms(fn)
+                row[f"batch_bytes_{name}"] = pack_bytes(stb, obb, exb)
+                row[f"batch_bound_ms_{name}"] = 1e3 * row[f"batch_bytes_{name}"] / HBM_BYTES_PER_S
+    return row, errs, (cfg, prev, inbox)
+
+
+def pack_interleaved(calls: dict, rounds: int = 10) -> float:
+    """K7 over ``rounds`` rounds of the compared calls in turns, the
+    layout cache emptied before every other round so hits and misses
+    alternate: the largest difference from the plain results."""
+    from minpaxos_tpu_torch.ops import substeps
+
+    err = 0.0
+    for rnd in range(rounds):
+        if rnd % 2 == 0:
+            substeps._launch.layouts.clear()
+        for fn, want in calls.values():
+            err = max(err, max_abs_err(fn(), want))
+    return err
+
+
+def compare_tcp(dev, seed: int) -> tuple[dict, dict]:
+    """K7 (``compare_pack``, then over its calls in turns,
+    ``pack_interleaved``); K4 insert on 2^18-way tables 90% full; K5
+    vote bits with five replicas and K6 at the server's default window
+    (16,384 slots), timed, also on ``exec_cases``' windows.
+    Returns (the pack_outputs row, the extra checks, and under
+    ``_dispatch_probe`` the leader's state and real inbox of that
+    exchange for ``dispatch_profile``)."""
+    from minpaxos_tpu_torch.ops import ackruns, mencius_exec
+    from minpaxos_tpu_torch.ops import kvstore as kvs
+
+    row, extra, probe = compare_pack(dev, seed)
+    extra["pack_outputs_interleaved"] = pack_interleaved(extra.pop("_calls"))
+    extra["_dispatch_probe"] = probe
+    torch.cuda.empty_cache()
     g = torch.Generator(device=dev)
     g.manual_seed(seed + 1)
-    B, S, R, Mo, Mi, E = 1280, 4096, 5, 2176, 1664, 512
 
     def ri(lo, hi, shape):
         return torch.randint(lo, hi, shape, device=dev, dtype=torch.int32, generator=g)
 
-    fr = ri(100, 5000, (B,))
-    common = dict(committed_upto=fr, window_base=fr - ri(0, 300, (B,)),
-                  crt_inst=fr + ri(-2, 40, (B,)), executed_upto=fr - ri(0, 30, (B,)),
-                  me=ri(0, R, (B,)), peer_commits=fr[:, None] + ri(-600, 3, (B, R)),
-                  kv=NS(dropped=ri(0, 2, (B,))))
-    states = [NS(**common, leader_id=ri(0, R, (B,)), prepared=ri(0, 2, (B,)) == 1,
-                 gossip_upto=fr - ri(-1, 3, (B,))),
-              NS(**common, status=ri(0, 6, (B, S)).to(torch.uint8),
-                 commit_sent=fr - ri(-3, 20, (B,)),
-                 tk_anchor=torch.where(ri(0, 2, (B,)) == 1, fr - ri(0, 50, (B,)), -1),
-                 crt_own=fr + ri(-5, 60, (B,)))]
-    obb = tmp.Outbox(tmp.MsgBatch(*[ri(-3, 1 << 20, (B, Mo)) for _ in range(12)]),
-                     ri(-2, R, (B, Mo)), ri(0, 2, (B, Mi)) == 1)
-    exb = tmp.ExecResult(ri(0, 100, (B,)), ri(0, E, (B,)), ri(-5, 5, (B, E)),
-                         ri(-5, 5, (B, E)), ri(0, 2, (B, E)) == 1, ri(0, 4, (B, E)),
-                         ri(0, 1 << 20, (B, E)), ri(-1, 9, (B, E)))
-    for name, stb in zip(("minpaxos", "mencius"), states):
-        got = substeps.pack_outputs(stb, obb, exb)
-        extra[f"pack_outputs_batch_{name}"] = max_abs_err(
-            got, substeps._pack_plain(stb, obb, exb, torch.empty_like(got),
-                                      stb.window_base))
     # K4 insert on 2^18-way tables 90% full: rows overflow, displace, drop
     C = 1 << TCP_KV_POW2
     kv = kvs.kv_init(TCP_KV_POW2, 2, dev)
@@ -2431,7 +2488,9 @@ def main() -> None:
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=v["library_ms"]))
-            for key in ("library_what", "unfused_ms"):
+            for key in ("library_what", "unfused_ms", "floor_ms", "batch_ms_minpaxos",
+                        "batch_bound_ms_minpaxos", "batch_ms_mencius",
+                        "batch_bound_ms_mencius"):
                 if v.get(key) is not None:
                     table[-1][key] = v[key]
     emit({"kernels": table})

@@ -158,7 +158,9 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    """The current stream of ``t``'s device, read as a raw handle
+    without building a ``torch.cuda.Stream`` object."""
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(t.get_device()))
 
 
 def cuda_arg(t: torch.Tensor, dtype: torch.dtype, what: str) -> torch.Tensor:

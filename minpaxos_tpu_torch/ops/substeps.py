@@ -22,6 +22,16 @@ serving runtime (runtime/replica.py):
   arrays. On a CUDA tensor one launch of K7
   (``kernels/csrc/substeps.cu``) writes the whole row; on the CPU the
   plain twin below casts, pads and concatenates.
+
+  K7 runs once per substep on the serving path, where the host is the
+  bottleneck, and at B = 1 it moves about 200 KB, so what bounds it is
+  the launch floor (the least time any launch takes) and its host
+  issue, not bytes. Its launch takes two parameter blocks: the layout
+  (``PackLayout``: per source its dtype code, strides and valid length,
+  plus R, S and the Mencius flag), built once per ``layout_key`` (every
+  source's and ``out``'s dtype, device, shape and strides) and cached,
+  and the sources' data pointers, the only thing written per launch.
+  A source that is not on ``out``'s CUDA device raises.
 * ``narrow_view`` / ``merge_view`` run the substeps on a ``narrow``-slot
   view of a larger window at a host offset: ``Tensor.narrow`` on the
   slot axis, and a ``copy_`` back. The slot fields are a fixed name
@@ -33,7 +43,9 @@ serving runtime (runtime/replica.py):
 from __future__ import annotations
 
 import ctypes
+import threading
 
+import numpy as np
 import torch
 
 from minpaxos_tpu_torch import kernels as K
@@ -157,79 +169,126 @@ def _pack_plain(state, outbox, execr, out, report_base):
     return out
 
 
-class _Col(ctypes.Structure):
-    """substeps.cu ``MpCol``: a [B] or [B, N] int32/1-byte tensor by
-    pointer and element strides; ``len`` valid entries along N (reads
-    past it give 0); a null pointer reads the default."""
-
-    _fields_ = [("p", ctypes.c_void_p), ("sb", ctypes.c_longlong),
-                ("si", ctypes.c_longlong), ("dt", ctypes.c_int),
-                ("len", ctypes.c_int)]
-
-
-class _PackArgs(ctypes.Structure):
-    """substeps.cu ``MpPackArgs``."""
-
-    _fields_ = [("out", _Col * N_OUT_COLS), ("ex", _Col * len(EXEC_COLS)),
-                ("sc", _Col * 9), ("me", _Col), ("pc", _Col),
-                ("crt_inst", _Col), ("crt_own", _Col), ("commit_sent", _Col),
-                ("tk_anchor", _Col), ("wbase", _Col), ("status", _Col),
-                ("leader_id", _Col), ("prepared", _Col), ("gossip", _Col),
-                ("committed", _Col), ("executed", _Col),
-                ("R", ctypes.c_int), ("S", ctypes.c_int), ("mencius", ctypes.c_int)]
-
-
+# Source slots of K7's launch (substeps.cu): the 14 outbox columns, the
+# 6 exec columns, the nine reported scalars (SCAL_FRONTIER .. SCAL_EXECUTED),
+# then what the anchors read.
+N_COLS = N_OUT_COLS + len(EXEC_COLS)
+SRC_PEER_COMMITS, SRC_STATUS = 34, 35
+N_SRC = 36
 _DT = {torch.int32: 0, torch.uint8: 1, torch.bool: 1}
+_MAX_LAYOUTS = 64
 
 
-def _col(t: torch.Tensor | None, n: int = 1) -> _Col:
-    if t is None:
-        return _Col(None, 0, 0, 0, 0)
-    if t.device.type != "cuda":
-        raise RuntimeError(f"pack_outputs: expected a CUDA tensor, got {t.device}")
-    if t.dtype not in _DT:
-        raise TypeError(f"pack_outputs: unsupported dtype {t.dtype}")
-    si = t.stride(1) if t.dim() > 1 else 0
-    length = t.shape[1] if t.dim() > 1 else 1
-    return _Col(t.data_ptr(), t.stride(0), si, _DT[t.dtype], min(length, n) if n else length)
+def pack_sources(state, outbox, execr, report_base) -> tuple:
+    """K7's source tensors in slot order; None where the protocol has no
+    such field (MinPaxos: the four Mencius anchor scalars and status;
+    Mencius: leader_id and prepared, which the kernel reads as -1 and 1)."""
+    men = _is_mencius(state)
+    return (*outbox.msgs, outbox.dst, outbox.acked,
+            *[getattr(execr, c) for c in EXEC_COLS],
+            state.committed_upto, report_base, state.crt_inst, state.kv.dropped,
+            execr.lo, execr.count,
+            None if men else state.leader_id, None if men else state.prepared,
+            state.executed_upto, state.me,
+            state.commit_sent if men else state.gossip_upto,
+            state.tk_anchor if men else None, state.crt_own if men else None,
+            state.window_base if men else None,
+            state.peer_commits, state.status if men else None)
+
+
+class PackLayout(ctypes.Structure):
+    """substeps.cu ``MpPackLayout``: per source slot its element strides
+    along the replica axis (``sb``) and the column (``si``), its valid
+    length (reads past it give 0; 0 means no source) and dtype code
+    (1: one byte); the row's shape, R, S and the Mencius flag."""
+
+    _fields_ = [("sb", ctypes.c_longlong * N_SRC), ("si", ctypes.c_longlong * N_SRC),
+                ("len", ctypes.c_int * N_SRC), ("dt", ctypes.c_int * N_SRC),
+                ("B", ctypes.c_int), ("Mout", ctypes.c_int), ("E", ctypes.c_int),
+                ("W", ctypes.c_int), ("R", ctypes.c_int), ("S", ctypes.c_int),
+                ("mencius", ctypes.c_int)]
+
+
+def layout_key(srcs, out) -> tuple:
+    """What a layout depends on: every source's and ``out``'s dtype,
+    device, shape and strides."""
+    return tuple([None if t is None else (t.dtype, t.device, t.shape, t.stride())
+                  for t in (*srcs, out)])
+
+
+def pack_layout(srcs, out) -> PackLayout:
+    """The launch layout of ``srcs`` (``pack_sources``) into ``out``.
+    Reads only metadata, so it runs for tensors on any device."""
+    b, m_out = srcs[0].shape
+    e = srcs[N_OUT_COLS].shape[1]
+    r = srcs[SRC_PEER_COMMITS].shape[1]
+    status = srcs[SRC_STATUS]
+    w = row_width(m_out, e, r)
+    if out.dtype != I32 or out.shape != (b, w) or not out.is_contiguous():
+        raise ValueError(f"pack_outputs: out must be contiguous int32 [{b}, {w}]")
+    lay = PackLayout(B=b, Mout=m_out, E=e, W=w, R=r, mencius=int(status is not None),
+                     S=1 if status is None else status.shape[1])
+    for i, t in enumerate(srcs):
+        if t is None:
+            continue
+        if t.dtype not in _DT:
+            raise TypeError(f"pack_outputs: unsupported dtype {t.dtype}")
+        if t.dim() not in (1, 2) or t.shape[0] != b:
+            raise ValueError(f"pack_outputs: source {i} has shape {tuple(t.shape)}, "
+                             f"expected [{b}] or [{b}, N]")
+        n = t.shape[1] if t.dim() == 2 else 1
+        lay.len[i] = min(n, m_out) if i < N_OUT_COLS else (min(n, e) if i < N_COLS else n)
+        lay.sb[i] = t.stride(0)
+        lay.si[i] = t.stride(1) if t.dim() == 2 else 0
+        lay.dt[i] = _DT[t.dtype]
+    return lay
+
+
+class _Launcher:
+    """K7's host launch. A layout is built once per ``layout_key`` and
+    cached with its pointer array; a launch writes only the data
+    pointers and calls the kernel (looked up once)."""
+
+    def __init__(self):
+        self.layouts = {}
+        self.fn = None
+        self.lock = threading.Lock()
+
+    def entry(self, srcs, out):
+        """(layout, pointer array, their addresses) of ``srcs`` into
+        ``out``; raises for a tensor that is not on ``out``'s CUDA device."""
+        key = layout_key(srcs, out)
+        hit = self.layouts.get(key)
+        if hit is None:
+            lay = pack_layout(srcs, out)
+            for t in (out, *srcs):
+                if t is not None and (t.device.type != "cuda" or t.device != out.device):
+                    raise RuntimeError(f"pack_outputs: expected a CUDA tensor on "
+                                       f"{out.device}, got {t.device}")
+            if len(self.layouts) >= _MAX_LAYOUTS:
+                self.layouts.clear()
+            ptrs = (ctypes.c_void_p * N_SRC)()
+            hit = self.layouts[key] = (lay, ptrs, ctypes.addressof(lay),
+                                       ctypes.addressof(ptrs))
+        return hit
+
+    def __call__(self, srcs, out) -> None:
+        _, ptrs, lay_at, ptrs_at = self.entry(srcs, out)
+        if self.fn is None:
+            self.fn = K.fn("substeps", "mp_pack_outputs", [K.P, K.P, K.P, K.P])
+        with self.lock:
+            ptrs[:] = [None if t is None else t.data_ptr() for t in srcs]
+            rc = self.fn(lay_at, ptrs_at, out.data_ptr(), K.stream(out))
+        if rc:
+            K.check("substeps", rc, "pack_outputs")
+
+
+_launch = _Launcher()
 
 
 @K.kernel("pack_outputs")
 def _pack_kernel(state, outbox, execr, out, report_base):
-    m = outbox.msgs
-    b, m_out = m.kind.shape
-    e = execr.val_hi.shape[1]
-    r = state.peer_commits.shape[1]
-    w = row_width(m_out, e, r)
-    if out.dtype != I32 or out.shape != (b, w) or not out.is_contiguous():
-        raise ValueError(f"pack_outputs: out must be contiguous int32 [{b}, {w}]")
-    a = _PackArgs()
-    for i, t in enumerate(list(m) + [outbox.dst, outbox.acked]):
-        a.out[i] = _col(t, m_out)
-    for i, c in enumerate(EXEC_COLS):
-        a.ex[i] = _col(getattr(execr, c), e)
-    men = _is_mencius(state)
-    sc = [state.committed_upto, report_base, state.crt_inst, state.kv.dropped,
-          execr.lo, execr.count, None if men else state.leader_id,
-          None if men else state.prepared, state.executed_upto]
-    for i, t in enumerate(sc):
-        a.sc[i] = _col(t)
-    a.me, a.pc = _col(state.me), _col(state.peer_commits, r)
-    a.crt_inst, a.committed, a.executed = (
-        _col(state.crt_inst), _col(state.committed_upto), _col(state.executed_upto))
-    if men:
-        a.crt_own, a.commit_sent = _col(state.crt_own), _col(state.commit_sent)
-        a.tk_anchor, a.wbase = _col(state.tk_anchor), _col(state.window_base)
-        a.status = _col(state.status, state.status.shape[1])
-    else:
-        a.leader_id, a.prepared = _col(state.leader_id), _col(state.prepared)
-        a.gossip = _col(state.gossip_upto)
-    a.R, a.S, a.mencius = r, state.status.shape[1] if men else 1, int(men)
-    f_ = K.fn("substeps", "mp_pack_outputs",
-              [K.P, K.P, K.I, K.I, K.I, K.I, K.P])
-    rc = f_(ctypes.cast(ctypes.pointer(a), ctypes.c_void_p), K.ptr(out), b, m_out,
-            e, w, K.stream(out))
-    K.check("substeps", rc, "pack_outputs")
+    _launch(pack_sources(state, outbox, execr, report_base), out)
     _pack_kernel.launches += 1
     return out
 
@@ -241,14 +300,97 @@ def pack_outputs(state, outbox, execr, out: torch.Tensor | None = None,
     ``report_base`` is the window base the scalar vector reports (the
     full state's under a narrow view; default the state's own)."""
     m = outbox.msgs
-    b, m_out = m.kind.shape
-    w = row_width(m_out, execr.val_hi.shape[1], state.peer_commits.shape[1])
     if out is None:
+        b, m_out = m.kind.shape
+        w = row_width(m_out, execr.val_hi.shape[1], state.peer_commits.shape[1])
         out = torch.empty((b, w), dtype=I32, device=m.kind.device)
     base = state.window_base if report_base is None else report_base
     if K.on_cpu(out, m.kind, state.committed_upto):
         return _pack_plain(state, outbox, execr, out, base)
     return _pack_kernel(state, outbox, execr, out, base)
+
+
+PACK_CASES = ("minpaxos", "mencius", "mencius_edges")
+# the status the mencius_edges rows find at rel, in turn
+_STATUS_EDGES = (COMMITTED, COMMITTED - 1, COMMITTED + 1)
+
+
+def pack_cases(rng, b: int, s: int, r: int, m_out: int, m_in: int, e: int,
+               names=None) -> dict:
+    """K7 inputs as numpy, drawn from the numpy generator ``rng``, by
+    case: ``b`` replicas' state scalars (int32 [b]; ``peer_commits``
+    [b, r], ``status`` uint8 [b, s]), random outbox columns (``msgs``
+    int32 [12, b, m_out], ``dst``, ``acked`` bool [b, m_in]) and exec
+    columns (``exec_<field>`` of ExecResult, ``found`` bool).
+
+    ``minpaxos`` / ``mencius``: random scalars in the two anchor forms.
+    ``mencius_edges``: Mencius rows whose only pending term is the
+    unannounced-commit test (no backlog, nothing in flight, no peer
+    lag): row i finds rel = nxt - window_base at -7, -1, 0, 1, s - 1, s
+    or s + 5 in turn (below the window, its first and last slot, at and
+    past its end) and, where rel lies in the window, status
+    ``_STATUS_EDGES[i // 7 % 3]`` there (exactly COMMITTED, one below,
+    one above); tk_anchor is -1 on two rows in three."""
+    i32 = np.int32
+
+    def ri(lo, hi, shape):
+        return rng.integers(lo, hi, shape).astype(i32)
+
+    out = {}
+    for name in names or PACK_CASES:
+        fr = ri(100, 5000, b)
+        c = dict(committed_upto=fr, window_base=fr - ri(0, 300, b),
+                 crt_inst=fr + ri(-2, 40, b), executed_upto=fr - ri(0, 30, b),
+                 me=ri(0, r, b), peer_commits=fr[:, None] + ri(-600, 3, (b, r)),
+                 kv_dropped=ri(0, 2, b))
+        if name == "minpaxos":
+            c.update(leader_id=ri(0, r, b), prepared=rng.random(b) < 0.5,
+                     gossip_upto=fr - ri(-1, 3, b))
+        elif name == "mencius":
+            c.update(status=ri(0, 6, (b, s)).astype(np.uint8),
+                     commit_sent=fr - ri(-3, 20, b),
+                     tk_anchor=np.where(rng.random(b) < 0.5, fr - ri(0, 50, b), -1).astype(i32),
+                     crt_own=fr + ri(-5, 60, b))
+        else:
+            rows = np.arange(b)
+            cs = fr - ri(0, 20, b)
+            nxt = cs + 1 + (c["me"] - cs - 1) % r  # a floor mod, as jnp.mod
+            edges = np.array([-7, -1, 0, 1, s - 1, s, s + 5], i32)
+            rel = edges[rows % len(edges)]
+            status = ri(0, COMMITTED, (b, s)).astype(np.uint8)
+            hit = (rel >= 0) & (rel < s)
+            status[rows[hit], rel[hit]] = np.array(_STATUS_EDGES, np.uint8)[
+                rows[hit] // len(edges) % len(_STATUS_EDGES)]
+            c.update(executed_upto=fr, crt_inst=fr + 1 - ri(0, 3, b),
+                     peer_commits=fr[:, None] + ri(0, 3, (b, r)), commit_sent=cs,
+                     window_base=(nxt - rel).astype(i32), status=status,
+                     tk_anchor=np.where(rows % 3 == 0, fr - ri(0, 50, b), -1).astype(i32),
+                     crt_own=fr + ri(-5, 60, b))
+        c.update(msgs=ri(-3, 1 << 20, (12, b, m_out)), dst=ri(-2, r, (b, m_out)),
+                 acked=rng.random((b, m_in)) < 0.5,
+                 exec_lo=ri(0, 100, b), exec_count=ri(0, e, b),
+                 exec_val_hi=ri(-5, 5, (b, e)), exec_val_lo=ri(-5, 5, (b, e)),
+                 exec_found=rng.random((b, e)) < 0.5, exec_op=ri(0, 4, (b, e)),
+                 exec_cmd_id=ri(0, 1 << 20, (b, e)), exec_client_id=ri(-1, 9, (b, e)))
+        out[name] = c
+    return out
+
+
+def pack_case_tensors(case: dict, device):
+    """(state, Outbox, ExecResult) on ``device`` from a ``pack_cases``
+    case; the state is a namespace of the fields K7 reads (``kv.dropped``
+    included), without ``leader_id`` in the Mencius forms."""
+    from types import SimpleNamespace
+
+    from minpaxos_tpu_torch.models.minpaxos import ExecResult, MsgBatch, Outbox
+
+    t = {k: torch.from_numpy(v).to(device) for k, v in case.items()}
+    st = SimpleNamespace(kv=SimpleNamespace(dropped=t.pop("kv_dropped")),
+                         **{k: v for k, v in t.items()
+                            if k not in ("msgs", "dst", "acked") and not k.startswith("exec_")})
+    ob = Outbox(MsgBatch(*t["msgs"].unbind(0)), t["dst"], t["acked"])
+    ex = ExecResult(*[t[f"exec_{f}"] for f in ExecResult._fields])
+    return st, ob, ex
 
 
 def _empty_like(inbox):

@@ -699,6 +699,75 @@ def test_pack_outputs_kernel(dev, protocol):
     assert substeps._pack_kernel.launches > 0
 
 
+def _row_of(t, r):
+    """Replica row r of a state, outbox or exec result, as B = 1 views."""
+    return type(t)(*[_row_of(x, r) if isinstance(x, tuple) else x[r:r + 1] for x in t])
+
+
+def test_pack_outputs_interleaved_layouts(dev):
+    """K7 against its plain twin over 10 rounds of launches in which the
+    layouts take turns: MinPaxos and Mencius states of a live exchange
+    (full window, the narrow view with a report base, one replica row)
+    and the B = 1,280 random forms of chip_smoke.py's compare. The
+    layout cache is emptied before every other round, so hits and misses
+    alternate; a stale layout or pointer would show as a difference."""
+    from minpaxos_tpu_torch.ops import substeps
+
+    cases = {}
+    for protocol in ("minpaxos", "mencius"):
+        st, ob, ex = _pack_scenario(dev, protocol)[-1]
+        view, _ = substeps.narrow_view(st, 8, 64)
+        cases[f"{protocol}_full"] = (st, ob, ex, st.window_base)
+        cases[f"{protocol}_narrow"] = (view, ob, ex, st.window_base + 3)
+        row = (_row_of(st, 1), _row_of(ob, 1), _row_of(ex, 1))
+        cases[f"{protocol}_B1"] = (*row, row[0].window_base)
+    rng = np.random.default_rng(11)
+    for name, c in substeps.pack_cases(rng, 1280, 4096, 5, 2176, 1664, 512).items():
+        st, ob, ex = substeps.pack_case_tensors(c, dev)
+        cases[f"batch_{name}"] = (st, ob, ex, st.window_base)
+    want = {}
+    for name, (st, ob, ex, rb) in cases.items():
+        w = substeps.row_width(ob.msgs.kind.shape[1], ex.val_hi.shape[1],
+                               st.peer_commits.shape[1])
+        want[name] = substeps._pack_plain(
+            st, ob, ex, torch.empty((st.me.shape[0], w), dtype=torch.int32, device=dev), rb)
+    before = substeps._pack_kernel.launches
+    for rnd in range(10):
+        if rnd % 2 == 0:
+            substeps._launch.layouts.clear()
+        for name, (st, ob, ex, rb) in cases.items():
+            got = substeps.pack_outputs(st, ob, ex, report_base=rb)
+            assert torch.equal(got, want[name]), (rnd, name)
+    assert substeps._pack_kernel.launches - before == 10 * len(cases)
+
+
+@pytest.mark.parametrize("r,m_in", [(1, 1664), (5, 1663), (32, 1664)])
+def test_pack_outputs_anchor_edges(dev, r, m_in):
+    """K7 on ops/substeps.py pack_cases at B = 1,280 over 10 launches
+    each: both anchor forms on random scalars and the Mencius edge rows
+    (rel < 0, 0, S - 1, S and past it; status exactly COMMITTED, one
+    below, one above; tk_anchor -1), with R = 1, 5 and 32 replicas for
+    the peer-commit reduction. An odd inbox length puts the acked rows
+    on and off 4-byte boundaries, and a view one byte into its storage
+    puts every row off them."""
+    from minpaxos_tpu_torch.ops import substeps
+
+    rng = np.random.default_rng(r)
+    for name, c in substeps.pack_cases(rng, 1280, 4096, r, 2176, m_in, 512).items():
+        st, ob, ex = substeps.pack_case_tensors(c, dev)
+        forms = [ob]
+        if name == "mencius_edges":
+            wide = torch.zeros((1280, m_in + 1), dtype=torch.bool, device=dev)
+            wide[:, 1:] = ob.acked
+            forms.append(ob._replace(acked=wide[:, 1:]))
+        w = substeps.row_width(2176, 512, r)
+        for obf in forms:
+            want = substeps._pack_plain(st, obf, ex, torch.empty(
+                (1280, w), dtype=torch.int32, device=dev), st.window_base)
+            for _ in range(10):
+                assert torch.equal(substeps.pack_outputs(st, obf, ex), want), name
+
+
 def test_golden_digests_on_the_card(dev):
     from minpaxos_tpu_torch.golden import PROTOCOLS, drive, first_divergence, load_fixture
 

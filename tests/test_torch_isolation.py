@@ -27,6 +27,7 @@ def _port_files():
     yield os.path.join(ROOT, "wall_ab.py")
     yield os.path.join(ROOT, "k5_ab.py")
     yield os.path.join(ROOT, "profile_ab.py")
+    yield os.path.join(ROOT, "k7_host.py")
 
 
 def _modules():
@@ -44,7 +45,7 @@ def test_every_module_imports_with_jax_blocked():
         "sys.modules['minpaxos_tpu'] = None\n"
         f"sys.path.insert(0, {ROOT!r})\n"
         "import importlib\n"
-        f"for name in {sorted(_modules())!r} + ['chip_smoke', 'wall_ab', 'profile_ab']:\n"
+        f"for name in {sorted(_modules())!r} + ['chip_smoke', 'wall_ab', 'profile_ab', 'k7_host']:\n"
         "    importlib.import_module(name)\n"
         "print('ok')\n")
     env = dict(os.environ)

@@ -17,6 +17,7 @@ tail and every state leaf must be equal exactly.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import jax
@@ -240,3 +241,196 @@ def test_narrow_view_selects_slot_fields_by_name():
     ms = tme.init_mencius(cfg, [0], device="cpu")
     _, mfields = substeps.narrow_view(ms, 0, 2)
     assert "executed" in mfields and "peer_commits" not in mfields
+
+
+# ---- K7's launch layout (the kernel's half that runs on the CPU) ----
+
+_PROTOCOLS = ("minpaxos", "classic", "mencius")
+
+
+def _mid_exchange(protocol):
+    """(state, outbox, exec result) of every replica after four steps of
+    the exchange, as the plain-twin test above takes them."""
+    _, tcfg = _cfgs(protocol)
+    step_t = tme.mencius_step_impl if protocol == "mencius" else tmp.replica_step_impl
+    rng = np.random.default_rng(3)
+    st = _start(protocol, tcfg)
+    st, outbox, _ = step_t(tcfg, st, tmp.MsgBatch.empty(R, M, "cpu"))
+    for step in range(4):
+        cols = _route(outbox, protocol, rng, step)
+        inbox = tmp.MsgBatch(*[torch.from_numpy(cols[c]) for c in tmp.MsgBatch._fields])
+        st, outbox, execr = step_t(tcfg, st, inbox)
+    return st, outbox, execr
+
+
+def _sources(protocol, narrow=False):
+    """K7's sources and an ``out`` for them: the full state, or its
+    ``narrow_view(st, 8, 64)`` with a report base of its own."""
+    st, ob, ex = _mid_exchange(protocol)
+    rb = st.window_base
+    if narrow:
+        st, _ = substeps.narrow_view(st, 8, 64)
+        rb = rb + 3
+    srcs = substeps.pack_sources(st, ob, ex, rb)
+    m_out = ob.msgs.kind.shape[1]
+    out = torch.empty((R, substeps.row_width(m_out, E, R)), dtype=torch.int32)
+    return srcs, out
+
+
+@pytest.mark.parametrize("narrow", [False, True], ids=["full", "narrow"])
+@pytest.mark.parametrize("protocol", _PROTOCOLS)
+def test_pack_layout_describes_every_source(protocol, narrow):
+    """The layout K7 is launched with holds each source's strides, valid
+    length and dtype code, as the tensors have them; the 1-byte sources
+    (acked, found, prepared or status) are read as bytes."""
+    srcs, out = _sources(protocol, narrow)
+    lay = substeps.pack_layout(srcs, out)
+    men = protocol == "mencius"
+    m_out = srcs[0].shape[1]
+    assert m_out > M and srcs[substeps.N_OUT_COLS - 1].shape[1] == M
+    assert (lay.B, lay.Mout, lay.E, lay.R) == (R, m_out, E, R)
+    assert lay.W == out.shape[1] and lay.mencius == int(men)
+    assert lay.S == ((64 if narrow else SHAPE["window"]) if men else 1)
+    assert len(srcs) == substeps.N_SRC
+    for i, t in enumerate(srcs):
+        if t is None:
+            assert lay.len[i] == 0, i
+            continue
+        n = t.shape[1] if t.dim() == 2 else 1
+        cap = m_out if i < substeps.N_OUT_COLS else (E if i < substeps.N_COLS else n)
+        assert lay.len[i] == min(n, cap), i
+        assert lay.sb[i] == t.stride(0), i
+        assert lay.si[i] == (t.stride(1) if t.dim() == 2 else 0), i
+        assert lay.dt[i] == (1 if t.dtype in (torch.uint8, torch.bool) else 0), i
+        assert t.dtype in (torch.int32, torch.uint8, torch.bool), i
+    one_byte = [substeps.N_OUT_COLS - 1, substeps.N_OUT_COLS + substeps.EXEC_COLS.index("found")]
+    one_byte.append(substeps.SRC_STATUS if men else substeps.SRC_PEER_COMMITS - 7)
+    for i in one_byte:
+        assert srcs[i].element_size() == 1 and lay.dt[i] == 1, i
+    assert lay.len[substeps.N_OUT_COLS - 1] == srcs[substeps.N_OUT_COLS - 1].shape[1]
+    if men:
+        status = srcs[substeps.SRC_STATUS]
+        assert lay.sb[substeps.SRC_STATUS] == SHAPE["window"] and lay.si[substeps.SRC_STATUS] == 1
+        assert lay.len[substeps.SRC_STATUS] == status.shape[1] == lay.S
+        # leader_id and prepared: no source; the kernel reads -1 and 1
+        assert srcs[26] is None and srcs[27] is None
+    else:
+        assert all(srcs[i] is None for i in (31, 32, 33, substeps.SRC_STATUS))
+
+
+def _changed(srcs, change):
+    """``srcs`` with one layout input changed."""
+    s = list(srcs)
+    acked = substeps.N_OUT_COLS - 1
+    if change == "stride":  # the same values, column-major
+        s[0] = s[0].t().contiguous().t()
+    elif change == "length":
+        s[acked] = s[acked][:, :-1]
+    elif change == "dtype":
+        s[acked] = s[acked].to(torch.int32)
+    elif change == "dtype_one_byte":  # bool to uint8: the same layout
+        s[acked] = s[acked].to(torch.uint8)
+    elif change == "report_base_stride":
+        s[21] = torch.stack([s[21], s[21]], 1)[:, 0]
+    elif change == "device":
+        s[5] = s[5].to("meta")
+    elif change == "protocol":
+        s = list(_sources("mencius")[0])
+    elif change == "narrow":
+        s = list(_sources("mencius", narrow=True)[0])
+    return tuple(s)
+
+
+@pytest.mark.parametrize("change", ["stride", "length", "dtype", "dtype_one_byte",
+                                    "report_base_stride", "device", "protocol", "narrow"])
+def test_layout_key_changes_with_each_layout_input(change):
+    """A changed stride, valid length, dtype, report base layout, device,
+    protocol or narrow view gives another cache key, so the launch never
+    reuses a stale layout; sources with equal metadata (a copy of every
+    tensor with its strides, whose pointers differ) share one, since a launch rewrites
+    every pointer. A MinPaxos narrow view reads no slot field, so it
+    shares the full window's layout; a Mencius one reads status."""
+    srcs, out = _sources("mencius" if change == "narrow" else "minpaxos")
+    key = substeps.layout_key(srcs, out)
+    if change == "narrow":
+        assert substeps.layout_key(*_sources("minpaxos", narrow=True)) == \
+            substeps.layout_key(*_sources("minpaxos"))
+    copy = tuple(None if t is None else torch.empty_strided(
+        t.shape, t.stride(), dtype=t.dtype).copy_(t) for t in srcs)
+    assert substeps.layout_key(copy, out.clone()) == key
+    assert substeps.layout_key(_changed(srcs, change), out) != key
+    if change not in ("dtype_one_byte", "device", "protocol", "narrow"):
+        assert bytes(substeps.pack_layout(_changed(srcs, change), out)) != bytes(
+            substeps.pack_layout(srcs, out))
+
+
+def _fake_cuda(t):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device="cuda")
+
+
+@pytest.mark.parametrize("protocol", _PROTOCOLS)
+def test_launcher_never_serves_a_cuda_layout_to_another_device(protocol):
+    """A layout cached for CUDA sources (fake tensors: metadata only) is
+    served again for CUDA sources of the same layout, and never for the
+    same layout on the CPU, nor for a mix: those raise and cache nothing."""
+    srcs, out = _sources(protocol)
+    cuda = tuple(None if t is None else _fake_cuda(t) for t in srcs)
+    launch = substeps._Launcher()
+    hit = launch.entry(cuda, _fake_cuda(out))
+    assert launch.entry(cuda, _fake_cuda(out)) is hit
+    assert bytes(hit[0]) == bytes(substeps.pack_layout(srcs, out))
+    assert hit[2:] == (ctypes.addressof(hit[0]), ctypes.addressof(hit[1]))
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        launch.entry(srcs, out)
+    mixed = list(cuda)
+    mixed[3] = srcs[3]
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        launch.entry(tuple(mixed), _fake_cuda(out))
+    assert len(launch.layouts) == 1
+
+
+def _jax_pack_rows(case, s, r):
+    """JAX's pack_outputs, row by row (vmap), on a ``pack_cases`` case."""
+    import collections
+
+    from minpaxos_tpu.ops.substeps import pack_outputs as jax_pack
+
+    keys = [k for k in case if k not in ("msgs", "dst", "acked", "kv_dropped")
+            and not k.startswith("exec_")]
+    St = collections.namedtuple("St", keys + ["kv"])
+    Kv = collections.namedtuple("Kv", ["dropped"])
+    Ob = collections.namedtuple("Ob", ["msgs", "dst", "acked"])
+    Ex = collections.namedtuple("Ex", list(tmp.ExecResult._fields))
+    st = St(**{k: jnp.asarray(case[k]) for k in keys}, kv=Kv(jnp.asarray(case["kv_dropped"])))
+    ob = Ob(JaxMsgBatch(*[jnp.asarray(c) for c in case["msgs"]]),
+            jnp.asarray(case["dst"]), jnp.asarray(case["acked"]))
+    ex = Ex(*[jnp.asarray(case[f"exec_{f}"]) for f in Ex._fields])
+    return jax.vmap(jax_pack)(st, ob, ex)
+
+
+@pytest.mark.parametrize("r", [1, 5, 32])
+@pytest.mark.parametrize("name", list(substeps.PACK_CASES))
+def test_pack_cases_plain_twin_matches_jax(name, r):
+    """The card tests' and chip_smoke.py's K7 inputs: the plain twin
+    equals JAX's pack_outputs row by row, at R = 1, 5 and 32 (the
+    peer-commit reduction's edges); the edge rows reach every rel edge
+    and both values of work_pending."""
+    b, s, m_out, m_in, e = 42, 64, 40, 30, 9
+    case = substeps.pack_cases(np.random.default_rng(r), b, s, r, m_out, m_in, e,
+                               names=(name,))[name]
+    st, ob, ex = substeps.pack_case_tensors(case, "cpu")
+    o_t, e_t, s_t, pc_t = substeps.unpack(substeps.pack_outputs(st, ob, ex).numpy(), e, r)
+    o_j, e_j, s_j = _jax_pack_rows(case, s, r)
+    np.testing.assert_array_equal(o_t, np.asarray(o_j))
+    np.testing.assert_array_equal(e_t, np.asarray(e_j))
+    np.testing.assert_array_equal(s_t, np.asarray(s_j))
+    np.testing.assert_array_equal(pc_t, case["peer_commits"])
+    if name == "mencius_edges":
+        cs, me = case["commit_sent"], case["me"]
+        rel = cs + 1 + (me - cs - 1) % r - case["window_base"]
+        assert set(rel.tolist()) == {-7, -1, 0, 1, s - 1, s, s + 5}
+        assert set(s_t[:, substeps.SCAL_WORK_PENDING].tolist()) == {0, 1}
+        assert (case["tk_anchor"] == -1).any() and (case["tk_anchor"] >= 0).any()
