@@ -10,7 +10,10 @@ Phases, each printing one JSON line:
 2. compare  — every hand-written kernel against its plain PyTorch twin
               on the card, at the shapes of each path below (MinPaxos,
               Mencius, then one TCP replica server: B = 1, 2^18-way KV
-              table, K7 on the leader's outputs of a live exchange), on
+              table, K7 on the leader's outputs of a live exchange, then
+              the model checker's step: S=8, a one-row inbox, exec 4,
+              2^3 KV ways, R=3, MinPaxos and Mencius forms, at its
+              chunk of 8,192 rows and at a small odd B), on
               seeded inputs; integer results, compared for equality
               (on repeated launches where named, so a race shows).
               K4 lookup on three cases: random (tables a quarter
@@ -78,7 +81,23 @@ Phases, each printing one JSON line:
               reproduce every per-step state digest of the JAX
               package's golden fixture (tests/fixtures/kernel_golden.json)
               for minpaxos, classic and mencius.
-4. mainpath — ShardedCluster at the 1M-instance deployment (G=256
+4. mc       — the model checker (minpaxos_tpu_torch/verify, the legs of
+              ``python -m minpaxos_tpu_torch.cli.mc --smoke`` and
+              ``--flex-certified``) on the card: every BFS layer's
+              stepping actions as batched calls of the port's step
+              (S=8, one-row inboxes, exec 4, 2^3 KV ways, B from 1 to
+              8,192 rows), through the hand-written kernels. Held to
+              every count field of MC.json and MC_FLEX.json (read, never
+              written), to the JAX explorer's state digests
+              (tests/fixtures/paxmc_state_digests.json), the four seeded
+              mutants found and replayed, the four committed
+              counterexamples (tests/fixtures/mc_*.json) replayed to their
+              violations; every kernel each protocol's step launches must
+              launch in its legs; per leg the wall, its part in step
+              calls (step_s), transitions/s, step calls, largest batch
+              and peak memory; a limit of its own
+              (MC_LIMIT_S).
+5. mainpath — ShardedCluster at the 1M-instance deployment (G=256
               groups x R=5 replicas x W=4096 slots, p=512 proposals per
               round per group, k=32 rounds per dispatch), with the
               telemetry ring armed as bench.py arms it: elect, run the
@@ -99,19 +118,19 @@ Phases, each printing one JSON line:
               is the kernels line's kv_lookup row (the random case
               keeps its hits in each table's first ways, which stay in
               L2, so it is no reading against device memory).
-5. mencius  — ShardedCluster(protocol="mencius") at the Mencius
+6. mencius  — ShardedCluster(protocol="mencius") at the Mencius
               deployment (bench.py mencius_64k per group, G=256 groups x
               5 owners x W=4096, p=64 proposals per owner per round, to
               every owner, k=32 rounds per dispatch): the same checks,
               plus that every owner proposed exactly p rows in every
               round (its crt_own), so slot order equals round order for
               the read-back's replay; counts set to 0 just before it.
-6. variants — at the MinPaxos widths cut to 16 groups: the resident
+7. variants — at the MinPaxos widths cut to 16 groups: the resident
               loop with substeps=2 drains with committed == injected,
               and run_fused from the same seed gives the resident loop's
               commit stream (per-round cursors against the ring's rows)
               and its final state.
-7. tcp      — the TCP serving deployment, BASELINE config 1 at the shape
+8. tcp      — the TCP serving deployment, BASELINE config 1 at the shape
               bench_tcp.py runs: a master and three durable MinPaxos
               replica servers (-window 2048 -inbox 1024 -kvpow2 18
               -execbatch 128), each its own process and CUDA context on
@@ -184,13 +203,36 @@ TCP_OPS, TCP_EXTRA, TCP_BATCH = 20000, 2000, 512
 TCP_SHAPE = ["-window", str(TCP_W), "-inbox", str(TCP_INBOX),
              "-kvpow2", str(TCP_KV_POW2), "-execbatch", str(TCP_E)]
 TCP_LIMIT_S = 420.0  # the phase's own time limit
+MC_LIMIT_S = 180.0  # the mc phase's own time limit
+# the mc phase: the kernels each protocol's step launches at the model
+# checker's shapes (S=8, a one-row inbox, exec 4, 2^3 KV ways)
+MC_KERNELS = {
+    "minpaxos": ("scatter_max", "kv_segments", "advance_frontier", "kv_lookup",
+                 "kv_insert", "ack_runs", "vote_bits", "scatter_vote_bits",
+                 "slot_write"),
+    "mencius": ("scatter_max", "kv_segments", "advance_frontier", "kv_lookup",
+                "kv_insert", "ack_runs", "vote_bits", "scatter_vote_bits",
+                "exec_select", "gather_rows"),
+}
+MC_KERNELS["classic"] = MC_KERNELS["minpaxos"]
+MC_R, MC_S, MC_E, MC_KV_POW2 = 3, 8, 4, 3  # verify/mc.py model_config
+MC_CHUNK = 8192  # the explorer's largest step call (verify/mc.py CHUNK)
+# the count fields of MC.json and MC_FLEX.json the mc phase holds the
+# port's verdicts to (walls are not compared)
+MC_COUNT_FIELDS = ("states", "transitions", "max_depth_seen", "drained", "ok",
+                   "edges_checked", "refined_edges", "abstract_actions", "spec_q1",
+                   "spec_q2", "sccs", "cyclic_sccs", "goal_states", "deadlocks",
+                   "fair_lassos", "trace_len", "loop_start", "found",
+                   "replay_reproduced")
 
 
 class Shapes(NamedTuple):
     """One path's kernel shapes: B = groups x replicas rows (``batch``
     when set), S window slots, M inbox rows, E exec rows, C = 2^kv_pow2
     KV ways, m_out outbox rows per replica, cap inbox capacity, stride of
-    the range acks."""
+    the range acks; ``protocol`` picks the step's forms (Mencius: the
+    driven-slot mask, K6), ``routed`` the resident loop's kernels (K1,
+    K8, K9)."""
 
     path: str
     groups: int
@@ -203,16 +245,30 @@ class Shapes(NamedTuple):
     cap: int
     stride: int
     batch: int = 0
+    protocol: str = "minpaxos"
+    routed: bool = True
 
 
 PATHS = {
     "minpaxos": Shapes("minpaxos", G, R, W, INBOX + EXT, P, KV_POW2,
                        INBOX + EXT + REC_ROWS + 1 + 2 * CU_ROWS, INBOX, 1),
     "mencius": Shapes("mencius", G, R, W, M_INBOX + M_EXT, M_E, M_KV_POW2,
-                      M_INBOX + M_EXT + 1 + 3 * M_CU + 3 * M_REC, M_INBOX, R),
+                      M_INBOX + M_EXT + 1 + 3 * M_CU + 3 * M_REC, M_INBOX, R,
+                      protocol="mencius"),
     # one replica server of the TCP deployment (B = 1 of 3 replicas)
     "tcp": Shapes("tcp", 1, TCP_N, TCP_W, TCP_INBOX, TCP_E, TCP_KV_POW2,
-                  TCP_INBOX + TCP_REC + 1 + 2 * TCP_CU, TCP_INBOX, 1, batch=1),
+                  TCP_INBOX + TCP_REC + 1 + 2 * TCP_CU, TCP_INBOX, 1, batch=1,
+                  routed=False),
+    # the model checker's step (the mc phase): one-row inboxes, its
+    # largest chunk and a small odd batch, each protocol's forms
+    "mc": Shapes("mc", 1, MC_R, MC_S, 1, MC_E, MC_KV_POW2, 1, 1, 1,
+                 batch=MC_CHUNK, routed=False),
+    "mc_b7": Shapes("mc_b7", 1, MC_R, MC_S, 1, MC_E, MC_KV_POW2, 1, 1, 1,
+                    batch=7, routed=False),
+    "mc_mencius": Shapes("mc_mencius", 1, MC_R, MC_S, 1, MC_E, MC_KV_POW2, 1, 1,
+                         MC_R, batch=MC_CHUNK, protocol="mencius", routed=False),
+    "mc_mencius_b5": Shapes("mc_mencius_b5", 1, MC_R, MC_S, 1, MC_E, MC_KV_POW2, 1,
+                            1, MC_R, batch=5, protocol="mencius", routed=False),
 }
 # the kernels each path launches, as registered in minpaxos_tpu_torch.kernels
 KERNELS = {
@@ -759,8 +815,9 @@ def compare_kernels(dev, seed: int, sh: Shapes) -> tuple[dict, float]:
                                                      row["err"])
 
     # K1: the routing fabric over [12, G, N] pooled rows (not on the
-    # TCP path: there the transport delivers the rows)
-    if sh.path != "tcp":
+    # TCP and mc paths: there the transport or the explorer delivers
+    # the rows)
+    if sh.routed:
         cols = ri(-5, 1 << 20, (12, G, N))
         cols[0] = torch.where(rb(0.6, (G, N)), ri(1, 30, (G, N)), 0)
         u = torch.rand((G, N), device=dev, generator=g)
@@ -908,7 +965,7 @@ def compare_kernels(dev, seed: int, sh: Shapes) -> tuple[dict, float]:
     for name in K5_CASES:
         runs, votes = (tuple(map(on_dev, fams[name][k])) for k in ("runs", "votes"))
         into = on_dev(fams[name]["into"])
-        mask = on_dev(fams[name]["mask"]) if sh.path == "mencius" else None
+        mask = on_dev(fams[name]["mask"]) if sh.protocol == "mencius" else None
         ar_k = lambda r=runs: ackruns.compress_ack_runs(*r[:4], ballot=r[4], stride=d)  # noqa: E731
         ar_p = lambda r=runs: ackruns._compress_plain(*r, d)  # noqa: E731
         vb_k = lambda v=votes, i=into, k=mask: ackruns.range_vote_bits(  # noqa: E731
@@ -994,7 +1051,7 @@ def compare_kernels(dev, seed: int, sh: Shapes) -> tuple[dict, float]:
             res["scatter_vote_bits"]["cases"][name] = row
             res["scatter_vote_bits"]["err"] = max(res["scatter_vote_bits"]["err"], row["err"])
 
-    if sh.path == "mencius":
+    if sh.protocol == "mencius":
         # K6: the exec selector over [B, S] windows: duplicate keys from
         # the deployment's key space, NONE gaps, uncommitted writes,
         # executed slots, more candidates than the E budget in some rows
@@ -1239,7 +1296,7 @@ def compare_loop_kernels(dev, g, sh: Shapes, seed: int) -> dict:
         return torch.rand(shape, device=dev, generator=g) < p
 
     res = {}
-    if sh.path != "tcp":
+    if sh.routed:
         # K8: the deployment's rows (MinPaxos: p = ext to the leader;
         # Mencius: p = ext to every owner), a round where cmd_id wraps in
         # int32, and a hot-key batch; the numpy twin too
@@ -2382,6 +2439,109 @@ def tcp_path(seed: int, busy: dict) -> dict:
         fail("tcp", "; ".join(bad))
     return rec
 
+def count_diffs(got, want, where: str = "") -> list[str]:
+    """Every MC_COUNT_FIELDS entry of ``want`` (a committed verdict)
+    that ``got`` (the port's) does not equal, recursively."""
+    out = []
+    if isinstance(want, dict):
+        if not isinstance(got, dict):
+            return [f"{where}: {'missing' if got is None else repr(got)} "
+                    f"where a section is recorded"]
+        for k, w in want.items():
+            if k in MC_COUNT_FIELDS:
+                if got.get(k) != w:
+                    out.append(f"{where}{k}: {got.get(k)!r} != {w!r}")
+            elif isinstance(w, (dict, list)):
+                out += count_diffs(got.get(k), w, f"{where}{k}.")
+    elif isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            return [f"{where}: {len(got) if isinstance(got, list) else got!r} "
+                    f"entries != {len(want)}"]
+        for i, (g, w) in enumerate(zip(got, want)):
+            out += count_diffs(g, w, f"{where}{i}.")
+    return out
+
+
+def mc_phase(dev, smi: str) -> dict:
+    """The model checker on the card: ``cli/mc.py --smoke``'s legs and
+    ``--flex-certified``'s sweep through the port's batched step (the
+    liveness legs run once, for both), held to MC.json's and
+    MC_FLEX.json's count fields (read, never written), to the reference
+    explorer's state digests (tests/fixtures/paxmc_state_digests.json),
+    and the four committed counterexamples replayed to their violations.
+    Every kernel each protocol's step launches must launch in its legs."""
+    import glob
+
+    from minpaxos_tpu_torch import kernels as K
+    from minpaxos_tpu_torch.cli import mc as mc_cli
+    from minpaxos_tpu_torch.verify.mc import replay_counterexample
+
+    t0 = time.monotonic()
+    K.reset_launches()
+    legs = mc_cli.Legs(dev, log=lambda *a, **k: None)
+    smoke = mc_cli.smoke(legs)
+    flex = mc_cli.flex_certified(legs, liveness=smoke["liveness"])
+    replays = {}
+    for path in sorted(glob.glob(os.path.join(HERE, "tests", "fixtures", "mc_*.json"))):
+        with open(path) as f:
+            ce = json.load(f)
+        ok, report = replay_counterexample(ce, device=dev)
+        marker = "LASSO" if ce.get("kind") == "lasso" else (
+            "REFINEMENT" if ce.get("kind") == "refinement" else "DIVERGENCE")
+        replays[os.path.basename(path)] = ok and any(marker in v for v in report.violations)
+    wall = time.monotonic() - t0
+    launches = K.launch_counts()
+
+    with open(os.path.join(HERE, "MC.json")) as f:
+        ref_smoke = json.load(f)
+    with open(os.path.join(HERE, "MC_FLEX.json")) as f:
+        ref_flex = json.load(f)
+    with open(os.path.join(HERE, "tests", "fixtures", "paxmc_state_digests.json")) as f:
+        ref_digests = json.load(f)["runs"]
+    # (through JSON, as the committed records were written: tuples as lists)
+    bad = (count_diffs(json.loads(json.dumps(smoke)), ref_smoke, "MC.json ")
+           + count_diffs(json.loads(json.dumps(flex)), ref_flex, "MC_FLEX.json "))
+    digests = {}
+    for st in legs.stats:
+        want = ref_digests.get(st["label"])
+        if want is None:
+            continue
+        digests[st["label"]] = st["digest"] == want["digest"]
+        if (st["digest"], st["transitions"]) != (want["digest"], want["transitions"]):
+            bad.append(f"digest of {st['label']}: {st['digest']} != {want['digest']}")
+    wanted = {k for k, v in ref_digests.items() if not k.startswith("tiny-")}
+    if set(digests) != wanted:
+        bad.append(f"legs without a digest compare: {sorted(wanted - set(digests))}")
+    bad += [f"replay of {k} did not reproduce" for k, ok in replays.items() if not ok]
+    if len(replays) != 4:
+        bad.append(f"{len(replays)} counterexample fixtures replayed, not 4")
+    missing = {}
+    for proto, names in MC_KERNELS.items():
+        got = {}
+        for st in legs.stats:
+            if st["protocol"] == proto:
+                for k, n in st["launches"].items():
+                    got[k] = got.get(k, 0) + n
+        missing[proto] = [k for k in names if not got.get(k)]
+    bad += [f"{p} legs never launched {m}" for p, m in missing.items() if m]
+    if wall > MC_LIMIT_S:
+        bad.append(f"the phase took {wall:.1f} s, over its {MC_LIMIT_S:.0f} s limit")
+    rec = dict(
+        phase="mc", card=smi, device=torch.cuda.get_device_name(0),
+        wall_s=wall, limit_s=MC_LIMIT_S, smoke_ok=smoke["ok"], flex_ok=flex["ok"],
+        refined_edges=flex["refined_edges"], digests_equal=sum(digests.values()),
+        digests_compared=len(digests), replays=replays, launches=launches,
+        legs=[{k: st[k] for k in ("label", "wall_s", "step_s", "transitions",
+                                 "transitions_per_s", "step_calls", "max_batch",
+                                 "peak_mib")}
+              for st in legs.stats],
+        mismatches=bad)
+    emit(rec)
+    if bad:
+        fail("mc", "; ".join(bad[:20]))
+    return rec
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2450,6 +2610,8 @@ def main() -> None:
     emit(dict(phase="golden", **golden))
     if any(v["first_divergence"] is not None for v in golden.values()):
         fail("golden", f"digests diverge: {golden}")
+    mc_rec = mc_phase(dev, smi)
+    torch.cuda.empty_cache()
 
     recs = {"minpaxos": main_path(dev, args.seed, DISPATCHES, args.profile)}
     torch.cuda.empty_cache()
@@ -2493,6 +2655,21 @@ def main() -> None:
                         "batch_bound_ms_mencius"):
                 if v.get(key) is not None:
                     table[-1][key] = v[key]
+    # the mc phase's rows (name@mc): each kernel at the model checker's
+    # chunk of 8,192 rows (K6 in the Mencius form),
+    # launches summed over the phase's legs
+    for name in dict.fromkeys(MC_KERNELS["minpaxos"] + MC_KERNELS["mencius"]):
+        src, repl = REPLACES[name]
+        v = res["mc"].get(name) or res["mc_mencius"][name]
+        t_bytes = 1e3 * v["bytes"] / HBM_BYTES_PER_S
+        t_ops = 1e3 * v["ops"] / ALU_OPS_PER_S
+        table.append(dict(
+            name=f"{name}@mc", route="cuda", source=src, replaces=repl, path="mc",
+            launches=mc_rec["launches"].get(name, 0), max_abs_err=v["err"],
+            ms=v["ms"], host_ms=v["host_ms"], plain_ms=v["plain_ms"],
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=v["library_ms"]))
     emit({"kernels": table})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

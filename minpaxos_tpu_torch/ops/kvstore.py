@@ -411,20 +411,24 @@ def _displace(kv: KVState, pos, fail, claimed, matched):
     return dest, src, dst
 
 
-# per (device, B, E, C): the insert's global-memory claim scratch, for
-# tables whose claim arrays exceed a block's shared memory (C > 2^17)
+# per (device, E, C): the insert's global-memory claim scratch, for
+# tables whose claim arrays exceed a block's shared memory (C > 2^17),
+# [rows, ints a row] for the most rows a launch has asked for; a launch
+# of B rows takes the first B (so callers whose B varies, like the model
+# checker's batches, keep one entry)
 _SCRATCH: dict[tuple, torch.Tensor | None] = {}
 
 
 def _insert_scratch(b: int, e: int, c: int, device) -> torch.Tensor | None:
-    key = (str(device), b, e, c)
-    if key not in _SCRATCH:
+    key = (str(device), e, c)
+    t = _SCRATCH.get(key, False)
+    if t is False or (t is not None and t.shape[0] < b):
         f_ = K.fn("kvstore", "mp_kv_insert_scratch_ints", [K.I, K.I])
         f_.restype = ctypes.c_longlong
         n = int(f_(e, c))
-        _SCRATCH[key] = (torch.empty((b, n), dtype=I32, device=device)
-                         if n else None)
-    return _SCRATCH[key]
+        t = _SCRATCH[key] = (torch.empty((b, n), dtype=I32, device=device)
+                             if n else None)
+    return None if t is None else t[:b]
 
 
 @K.kernel("kv_insert")

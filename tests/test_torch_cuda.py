@@ -976,3 +976,100 @@ def test_resident_loop_on_the_card(dev, protocol, substeps):
     for name in ("propose_rows", "round_open", "round_close",
                  "slot_write" if protocol == "minpaxos" else "gather_rows"):
         assert a[5][name] > 0, name
+
+
+# ---- paxmc on the card: the explorer's batched steps through the kernels ----
+
+_MC_FIXTURE = "tests/fixtures/paxmc_state_digests.json"
+# a trace to a state whose next delivery, (1, 0), commits and executes a
+# slot (the K4 insert writes the stepped replica's KV table)
+_MC_TRACE = {
+    "minpaxos": [{"a": "deliver", "link": [0, 1]}, {"a": "deliver", "link": [1, 0]},
+                 {"a": "deliver", "link": [-1, 0]}, {"a": "deliver", "link": [0, 1]}],
+    "mencius": [{"a": "deliver", "link": [-1, 0]}, {"a": "deliver", "link": [0, 1]}],
+}
+_MC_TRACE["classic"] = _MC_TRACE["minpaxos"]
+
+
+@pytest.mark.parametrize("protocol", ["minpaxos", "classic", "mencius"])
+def test_mc_tiny_leg_on_the_card_equals_the_reference_digest(dev, protocol):
+    """The tiny leg's states, transitions and state digest on the card
+    are the JAX explorer's (the fixture)."""
+    import json
+    import os
+
+    from minpaxos_tpu_torch.verify import mc
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, _MC_FIXTURE)) as f:
+        want = json.load(f)["runs"][f"tiny-{protocol}"]
+    ex = mc.Explorer(protocol, mc.Bounds(**want["bounds"]), **want["kw"], device=dev)
+    res = ex.run()
+    assert res.ok and res.drained
+    assert (res.states, res.transitions, mc.state_digest(ex.seen)) == \
+        (want["states"], want["transitions"], want["digest"])
+
+
+def _mc_node(ex, protocol):
+    node = ex.initial()
+    for a in _MC_TRACE[protocol]:
+        node = ex._apply(node, a)
+    return node
+
+
+@pytest.mark.parametrize("protocol", ["minpaxos", "classic", "mencius"])
+def test_mc_one_state_stepped_twice_gives_equal_results(dev, protocol):
+    """K4's insert updates the KV table in place on the card: the batch
+    is built from copies, so one parent stepped twice in a batch, and
+    again in another call, gives equal states and outboxes (the CPU
+    twin's), and the parent's bytes stay as they were."""
+    from minpaxos_tpu_torch.verify import mc
+
+    b = mc.Bounds(max_depth=6, drops=1, dups=1, internal=1, elections=0, n_cmds=1,
+                  propose_to=(0,))
+    ex = mc.Explorer(protocol, b, device=dev)
+    cpu = mc.Explorer(protocol, b, device="cpu")
+    node = _mc_node(ex, protocol)
+    parent = node[0][0]
+    before = parent.buf.copy()
+    row = node[1][(1, 0)][0]
+    kv = ex.stepper.lay.fields["kv"]
+    twice, outs = ex.stepper.step([parent, parent], [row, row])
+    again, outs2 = ex.stepper.step([parent], [row])
+    want, want_out = cpu.stepper.step([parent], [row])
+    assert (twice[0].buf[kv.off:kv.off + kv.n] != before[kv.off:kv.off + kv.n]).any(), \
+        "the step did not write the KV table: the trace no longer reaches an execution"
+    for st in (twice[0], twice[1], again[0]):
+        assert st.buf.tobytes() == want[0].buf.tobytes()
+    assert outs[0] == outs[1] == outs2[0] == want_out[0]
+    assert parent.buf.tobytes() == before.tobytes()
+
+
+@pytest.mark.parametrize("protocol", ["minpaxos", "mencius"])
+def test_mc_chunk_at_the_largest_smoke_batch(dev, protocol):
+    """8,192 rows (the largest batch the smoke legs step, the default
+    chunk) in one step call equal the CPU twin's, and K4's insert
+    scratch cache keeps one entry whatever the batch."""
+    from minpaxos_tpu_torch.ops import kvstore
+    from minpaxos_tpu_torch.verify import mc
+
+    b = mc.Bounds(max_depth=6, drops=1, dups=1, internal=1, elections=0, n_cmds=1,
+                  propose_to=(0,))
+    ex = mc.Explorer(protocol, b, device=dev)
+    cpu = mc.Explorer(protocol, b, device="cpu")
+    node = _mc_node(ex, protocol)
+    pairs = [mc._stepping(node, a) for a in ex._actions(node)]
+    pairs = [p for p in pairs if p is not None]
+    rows = [pairs[i % len(pairs)] for i in range(mc.CHUNK)]
+    parents = [node[0][to] for to, _r in rows]
+    inbox = [r for _to, r in rows]
+    got, got_out = ex.stepper.step(parents, inbox)
+    assert ex.stepper.max_batch == mc.CHUNK
+    want, want_out = cpu.stepper.step(parents, inbox)
+    assert [s.buf.tobytes() for s in got] == [s.buf.tobytes() for s in want]
+    assert got_out == want_out
+    ex.stepper.step(parents[:1], inbox[:1])
+    cfg = ex.cfg
+    keys = [k for k in kvstore._SCRATCH
+            if k[0].startswith("cuda") and k[1:] == (cfg.exec_batch, 1 << cfg.kv_pow2)]
+    assert len(keys) == 1

@@ -262,3 +262,12 @@ def test_loop_kernels_never_fall_back():
                                   torch.zeros((2, 4), dtype=torch.bool),
                                   torch.zeros((2, 4), dtype=torch.bool), inbox, old, me,
                                   None, 5)
+
+
+def test_verify_modules_are_walked():
+    """The model checker's modules and its CLI are among those imported
+    with JAX blocked above (and so import nothing of the JAX package)."""
+    walked = set(_modules())
+    for name in ("verify", "verify.invariants", "verify.quorum", "verify.quorum_golden",
+                 "verify.spec", "verify.mc", "verify.refine", "verify.liveness", "cli.mc"):
+        assert f"minpaxos_tpu_torch.{name}" in walked, name
