@@ -10,7 +10,8 @@ Phases, each printing one JSON line:
 2. compare  — every hand-written kernel against its plain PyTorch twin
               on the card, at the shapes of each path below (MinPaxos,
               Mencius, then one TCP replica server: B = 1, 2^18-way KV
-              table, K7 on the leader's outputs of a live exchange, then
+              table, K7 on the leader's outputs of a live exchange, one
+              Mencius TCP server (tcp_mencius, below), then
               the model checker's step: S=8, a one-row inbox, exec 4,
               2^3 KV ways, R=3, MinPaxos and Mencius forms, at its
               chunk of 8,192 rows and at a small odd B), on
@@ -141,11 +142,34 @@ Phases, each printing one JSON line:
               frames; the three stable stores' committed prefixes held
               against each other; ops/s, client p50/p99, wall and device
               ms per dispatch, peak memory and kernel launches of every
-              server (printed by each server on stop). Before it, the
+              server (printed by each server on stop). Between the
+              revive and the read-back, the leader leg: 4,000 checked
+              PUTs from a client thread, the leader's process SIGKILLed
+              a quarter in, every PUT acked exactly once through the
+              master's promotion and the client's failover (failover_s:
+              the kill to the first ack the new leader served; the new
+              leader and its elections), the old leader revived from its
+              store as the kill left it until it reaches the new
+              leader's frontier; the stores then also pass the port's
+              check_cluster. Before it, the
               dispatch_profile line: one server dispatch at this shape
               (the step and K7 on the leader's inbox from the compare
               phase's exchange) under torch.profiler in this process —
               device busy ms and kernel launches per dispatch.
+9. tcp_mencius — bench_tcp.py's mencius_tcp_3rep_durable: three
+              -m -durable servers at the tcp shape, the round-robin
+              MultiClient with -check; 10,000 PUTs (ops/s, p50/p99), an
+              owner SIGKILLed and 2,000 more PUTs through the takeover
+              of its slots, the owner revived until it heals to the
+              cluster's frontier (heal_s), every key so far read back,
+              the replica a single client proposes to SIGKILLed under
+              1,000 PUTs, every PUT acked exactly once; the stores held as in
+              tcp; every server's stop line must show every kernel of
+              KERNELS["tcp_mencius"] (K2-K7 with K6 and K7's Mencius
+              form, K10 gather_rows). The compare line tcp_mencius holds
+              those kernels to their twins at that server's shape (B = 1,
+              S = 2,048, inbox 1,024, E = 128, 2^18 ways, stride 3; K7 on
+              the outputs of a live three-owner exchange).
 
 With --profile DIR, 4 steady rounds of each resident path after its run
 are traced with torch.profiler into DIR (profile lines: device ms and
@@ -200,9 +224,16 @@ K9_ROUNDS = 20  # K9's compare chains: rounds, each held to the twin
 TCP_N, TCP_W, TCP_INBOX, TCP_E, TCP_KV_POW2 = 3, 2048, 1024, 128, 18
 TCP_CU = TCP_REC = 256
 TCP_OPS, TCP_EXTRA, TCP_BATCH = 20000, 2000, 512
+TCP_FAIL = 4000  # the leader leg's PUTs (the leader killed a quarter in)
 TCP_SHAPE = ["-window", str(TCP_W), "-inbox", str(TCP_INBOX),
              "-kvpow2", str(TCP_KV_POW2), "-execbatch", str(TCP_E)]
 TCP_LIMIT_S = 420.0  # the phase's own time limit
+# the Mencius TCP deployment: bench_tcp.py's mencius_tcp_3rep_durable
+# (3 servers -m -durable at TCP_SHAPE, the round-robin MultiClient):
+# PUTs, then the owner leg's, then the proposer leg's; its own limit
+TCP_M_OPS, TCP_M_EXTRA, TCP_M_FAIL = 10000, 2000, 1000
+TCP_M_LIMIT_S = 480.0
+WARM = 300  # each TCP leg's warm-up PUTs (cmd_ids 0..299)
 MC_LIMIT_S = 180.0  # the mc phase's own time limit
 # the mc phase: the kernels each protocol's step launches at the model
 # checker's shapes (S=8, a one-row inbox, exec 4, 2^3 KV ways)
@@ -259,6 +290,12 @@ PATHS = {
     "tcp": Shapes("tcp", 1, TCP_N, TCP_W, TCP_INBOX, TCP_E, TCP_KV_POW2,
                   TCP_INBOX + TCP_REC + 1 + 2 * TCP_CU, TCP_INBOX, 1, batch=1,
                   routed=False),
+    # one Mencius replica server of the Mencius TCP deployment: its
+    # outbox is the inbox, the SKIP row, three catch-up and three
+    # recovery sections (models/mencius.py step 10)
+    "tcp_mencius": Shapes("tcp_mencius", 1, TCP_N, TCP_W, TCP_INBOX, TCP_E, TCP_KV_POW2,
+                          TCP_INBOX + 1 + 3 * TCP_CU + 3 * TCP_REC, TCP_INBOX, TCP_N,
+                          batch=1, protocol="mencius", routed=False),
     # the model checker's step (the mc phase): one-row inboxes, its
     # largest chunk and a small odd batch, each protocol's forms
     "mc": Shapes("mc", 1, MC_R, MC_S, 1, MC_E, MC_KV_POW2, 1, 1, 1,
@@ -285,6 +322,11 @@ KERNELS = {
     "tcp": ("scatter_max", "kv_segments", "advance_frontier", "kv_lookup",
             "kv_insert", "ack_runs", "vote_bits", "scatter_vote_bits",
             "pack_outputs", "slot_write"),
+    # every Mencius replica server's step (K6, K10 gather_rows, no
+    # slot_write) and packing (K7's Mencius form)
+    "tcp_mencius": ("scatter_max", "kv_segments", "advance_frontier", "kv_lookup",
+                    "kv_insert", "ack_runs", "vote_bits", "scatter_vote_bits",
+                    "exec_select", "gather_rows", "pack_outputs"),
 }
 # K5's compare families (ops/ackruns.py ack_families); the first is the
 # headline row of the kernels line
@@ -1377,6 +1419,9 @@ def compare_loop_kernels(dev, g, sh: Shapes, seed: int) -> dict:
             winner.gather_rows(mode, win, whit, inbox, old, me, n_replicas=R),
             winner._gather_rows_plain(mode, win, whit, inbox, old, me, None, R)))
     mode = winner.SlotMode(winner.BAL_ROW, winner.ST_ACCEPTED, winner.V_KEEP)
+    err = max(err, repeat_err(
+        lambda: winner.gather_rows(mode, win, whit, inbox, old, me, n_replicas=R),
+        winner._gather_rows_plain(mode, win, whit, inbox, old, me, None, R)))
     wr = win.clamp(min=0).long()
     hits = int(whit.sum().item())
     res["gather_rows"] = dict(
@@ -1598,6 +1643,79 @@ def pack_interleaved(calls: dict, rounds: int = 10) -> float:
         for fn, want in calls.values():
             err = max(err, max_abs_err(fn(), want))
     return err
+
+
+def _mencius_exchange(dev, cfg, seed: int, steps: int, per_step: int):
+    """Three Mencius owners at ``cfg`` on the card, each taking
+    ``per_step`` seeded PUTs into its own slots every step, rows routed
+    between them as the transport delivers them. Yields (state, outbox,
+    exec result) after every step."""
+    from minpaxos_tpu_torch.models import mencius as mm
+    from minpaxos_tpu_torch.models.minpaxos import MsgBatch
+    from minpaxos_tpu_torch.wire.messages import MsgKind, Op
+
+    r, m = cfg.n_replicas, cfg.inbox
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    st = mm.init_mencius(cfg, list(range(r)), device=dev)
+    st, ob, ex = mm.mencius_step_impl(cfg, st, MsgBatch.empty(r, m, dev))
+    for it in range(steps):
+        cols = torch.zeros((12, r, m), dtype=torch.int32, device=dev)
+        stacked = torch.stack(list(ob.msgs))
+        for q in range(r):
+            rows = [stacked[:, s_, (ob.msgs.kind[s_] != 0)
+                            & ((ob.dst[s_] == q) | (ob.dst[s_] == -1))]
+                    for s_ in range(r) if s_ != q]
+            p = torch.zeros((12, per_step), dtype=torch.int32, device=dev)
+            p[0], p[1], p[5] = int(MsgKind.PROPOSE), -1, int(Op.PUT)
+            p[7] = torch.randint(0, 100000, (per_step,), device=dev,
+                                 dtype=torch.int32, generator=g)
+            p[9] = torch.randint(1, 1 << 20, (per_step,), device=dev,
+                                 dtype=torch.int32, generator=g)
+            p[10] = per_step * (r * it + q) + torch.arange(per_step, device=dev)
+            p[11] = 7
+            rows.append(p)
+            x = torch.cat(rows, 1)[:, :m]
+            cols[:, q, :x.shape[1]] = x
+        st, ob, ex = mm.mencius_step_impl(cfg, st, MsgBatch(*cols.unbind(0)))
+        yield st, ob, ex
+
+
+def compare_pack_mencius(dev, seed: int) -> dict:
+    """K7's Mencius form against its plain twin at one Mencius replica
+    server's shapes: the outputs of the owner that executed most in a
+    live exchange at TCP_SHAPE (three owners, a third of a client batch
+    each a step), held over repeated launches, timed beside the plain
+    twin and torch.cat of the pre-cast columns."""
+    from minpaxos_tpu_torch.ops import substeps
+
+    best = None
+    for st, ob, ex in _mencius_exchange(dev, tcp_cfg(), seed, 8, TCP_BATCH // TCP_N):
+        for r in range(TCP_N):
+            if best is None or int(ex.count[r]) >= int(best[2].count[0]):
+                best = (_row_of(st, r), _row_of(ob, r), _row_of(ex, r))
+    st, ob, ex = best
+    m_out = ob.msgs.kind.shape[1]
+    assert m_out == PATHS["tcp_mencius"].m_out, (m_out, PATHS["tcp_mencius"].m_out)
+    out = torch.empty((1, substeps.row_width(m_out, TCP_E, TCP_N)),
+                      dtype=torch.int32, device=dev)
+    pk = lambda: substeps.pack_outputs(st, ob, ex, out)  # noqa: E731
+    pp = lambda: substeps._pack_plain(st, ob, ex, torch.empty_like(out), st.window_base)  # noqa: E731
+    m_in = ob.acked.shape[1]
+    ack = torch.zeros((1, m_out), dtype=torch.int32, device=dev)
+    ack[:, :m_in] = ob.acked.to(torch.int32)
+    pre = ([c.to(torch.int32) for c in ob.msgs] + [ob.dst.to(torch.int32), ack]
+           + [getattr(ex, c).to(torch.int32) for c in substeps.EXEC_COLS]
+           + [torch.stack([x.to(torch.int32) for x in substeps._scalar_columns(
+               st, ex, st.window_base)], 1), st.peer_commits])
+    want = pp()
+    err = max(max_abs_err(pk().clone(), want), repeat_err(lambda: pk().clone(), want))
+    w = out.shape[1]
+    return dict(err=err, **times(pk, pp, lambda: torch.cat(pre, 1)),
+                bytes=pack_bytes(st, ob, ex), ops=w + 64,
+                executed_in_row=int(ex.count[0]),
+                shapes=f"Mencius outbox [1,{m_out}] x 14, exec [1,{TCP_E}] x 6, "
+                       f"scalars -> packed row [1,{w}]")
 
 
 def compare_tcp(dev, seed: int) -> tuple[dict, dict]:
@@ -2180,264 +2298,662 @@ def _pctl(x, q):
     return float(np.percentile(np.asarray(x), q)) if len(x) else None
 
 
-def tcp_path(seed: int, busy: dict) -> dict:
-    """The TCP serving deployment (BASELINE config 1 at TCP_SHAPE): a
-    master and three durable MinPaxos replica servers, each its own
-    process and CUDA context on this card (python -m
-    minpaxos_tpu_torch.cli.{master,server}), and the port's client in
-    this process. Drives TCP_OPS checked PUTs closed loop, stops a
-    follower, drives TCP_EXTRA more, revives the follower from its
-    stable store and waits for it to catch up, reads every written key
-    back through READ frames, stops everything and holds the three
-    stable stores' committed prefixes against each other. Each server's
-    kernel launches (after its boot warm-up: the counts start at 0 in
-    every server process) come from the line it prints on stop.
-    ``busy``: the compare phase's profile of one server dispatch at this
-    shape (device busy ms and launches per dispatch), carried into the
-    line beside the servers' own host wall and event span."""
-    import shutil
-    import signal
+class TcpCluster:
+    """A master and TCP_N replica servers of the port on this card, each
+    its own process and CUDA context (python -m
+    minpaxos_tpu_torch.cli.{master,server}), stores under
+    .tcp_smoke/<pid>/<tag>, logs under .tcp_smoke_logs/<tag> (kept).
+    ``name[i]`` is replica i's live process; a process that was stopped
+    or killed keeps its log under a name of its own."""
 
-    from minpaxos_tpu_torch.runtime.client import Client, gen_workload
-    from minpaxos_tpu_torch.runtime.master import _rpc
-    from minpaxos_tpu_torch.runtime.stable import StableStore
-    from minpaxos_tpu_torch.utils.netutil import CONTROL_OFFSET, free_ports
+    def __init__(self, tag: str, flags: list[str], limit_s: float):
+        import shutil
 
-    t_phase = time.monotonic()
-    deadline = t_phase + TCP_LIMIT_S
-    work = os.path.join(HERE, ".tcp_smoke", str(os.getpid()))
-    logs = os.path.join(HERE, ".tcp_smoke_logs")  # kept after the run
-    for d in (work, logs):
-        shutil.rmtree(d, ignore_errors=True)
-        os.makedirs(d)
-    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    procs: dict[str, tuple] = {}
-    mport = free_ports(1)[0]
-    ports = free_ports(TCP_N, sibling_offset=CONTROL_OFFSET)
+        from minpaxos_tpu_torch.utils.netutil import CONTROL_OFFSET, free_ports
 
-    def left() -> float:
-        rest = deadline - time.monotonic()
+        self.tag, self.flags, self.limit_s = tag, flags, limit_s
+        self.t0 = time.monotonic()
+        self.deadline = self.t0 + limit_s
+        self.work = os.path.join(HERE, ".tcp_smoke", str(os.getpid()), tag)
+        self.logs = os.path.join(HERE, ".tcp_smoke_logs", tag)
+        for d in (self.work, self.logs):
+            shutil.rmtree(d, ignore_errors=True)
+            os.makedirs(d)
+        self.env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+                        + os.environ.get("PYTHONPATH", ""))
+        self.procs: dict[str, tuple] = {}
+        self.ended: set[str] = set()  # stopped or killed on purpose
+        self.mport = free_ports(1)[0]
+        self.ports = free_ports(TCP_N, sibling_offset=CONTROL_OFFSET)
+        self.offset = CONTROL_OFFSET
+        self.name: dict[int, str] = {}
+        self.port_of: dict[int, int] = {}
+        self.lives: dict[int, int] = {}
+
+    def left(self) -> float:
+        rest = self.deadline - time.monotonic()
         if rest <= 0:
-            raise TimeoutError(f"tcp phase exceeded its {TCP_LIMIT_S:.0f} s limit")
+            raise TimeoutError(f"{self.tag} phase exceeded its {self.limit_s:.0f} s limit")
         return rest
 
-    def spawn(name, args):
-        log = open(os.path.join(logs, name + ".log"), "wb")
-        p = subprocess.Popen([sys.executable, "-u", "-m", *args], cwd=HERE, env=env,
+    def spawn(self, name: str, args: list[str]) -> None:
+        log = open(os.path.join(self.logs, name + ".log"), "wb")
+        p = subprocess.Popen([sys.executable, "-u", "-m", *args], cwd=HERE, env=self.env,
                              stdout=log, stderr=subprocess.STDOUT)
-        procs[name] = (p, log)
+        self.procs[name] = (p, log)
 
-    def log_text(name):
-        with open(os.path.join(logs, name + ".log")) as f:
+    def log_text(self, name: str) -> str:
+        with open(os.path.join(self.logs, name + ".log")) as f:
             return f.read()
 
-    def ctl(port, req, timeout=2.0):
-        return _rpc(("127.0.0.1", port + CONTROL_OFFSET), req, timeout=timeout)
+    def master_rpc(self, req: dict) -> dict:
+        from minpaxos_tpu_torch.runtime.master import _rpc
 
-    def wait_for(pred, what, limit):
-        end = min(deadline, time.monotonic() + limit)
+        return _rpc(("127.0.0.1", self.mport), req)
+
+    def ctl(self, i: int, req: dict, timeout: float = 2.0) -> dict:
+        """One request to replica i's control port."""
+        from minpaxos_tpu_torch.runtime.master import _rpc
+
+        return _rpc(("127.0.0.1", self.port_of[i] + self.offset), req, timeout=timeout)
+
+    def wait_for(self, pred, what: str, limit: float):
+        end = min(self.deadline, time.monotonic() + limit)
         while time.monotonic() < end:
-            for name, (p, _) in procs.items():
-                if p.poll() is not None and not name.endswith("stopped"):
+            for name, (p, _) in self.procs.items():
+                if p.poll() is not None and name not in self.ended:
                     raise RuntimeError(f"{name} exited ({p.returncode}) while waiting "
-                                       f"for {what}:\n{log_text(name)[-3000:]}")
+                                       f"for {what}:\n{self.log_text(name)[-3000:]}")
             try:
                 v = pred()
             except (OSError, ValueError, KeyError):
                 v = None
             if v:
                 return v
-            time.sleep(0.1)
-        raise TimeoutError(f"tcp: timed out waiting for {what}")
+            time.sleep(0.05)
+        raise TimeoutError(f"{self.tag}: timed out waiting for {what}")
 
-    def server_args(port):
-        return ["minpaxos_tpu_torch.cli.server", "-port", str(port), "-mport", str(mport),
-                "-min", "-durable", "-storedir", work, *TCP_SHAPE]
+    def start_server(self, i: int | None = None, port: int | None = None) -> None:
+        """Start replica i (revived from its store) or, at boot, the
+        server on ``port``."""
+        if i is not None:
+            port = self.port_of[i]
+            self.lives[i] = self.lives.get(i, 1) + 1
+            name = f"replica{i}_life{self.lives[i]}"
+            self.name[i] = name
+        else:
+            name = f"server{port}"
+        self.spawn(name, ["minpaxos_tpu_torch.cli.server", "-port", str(port),
+                          "-mport", str(self.mport), *self.flags, "-durable",
+                          "-storedir", self.work, *TCP_SHAPE])
 
-    def stop(name):
-        p, log = procs.pop(name)
+    def boot(self) -> None:
+        """The master (-ping 0.5: a replica three pings silent is dead),
+        every server, the registration, every control port."""
+        self.spawn("master", ["minpaxos_tpu_torch.cli.master", "-port", str(self.mport),
+                              "-N", str(TCP_N), "-ping", "0.5"])
+        for port in self.ports:
+            self.start_server(port=port)
+        nodes = self.wait_for(lambda: (lambda r: r["ok"] and r["nodes"])(
+            self.master_rpc({"m": "get_replica_list"})), "all replicas to register", 120)
+        for i, (_, p) in enumerate(nodes):
+            self.port_of[i] = int(p)
+            self.name[i] = f"server{int(p)}"
+        self.wait_for(lambda: all(self.ctl(i, {"m": "ping"})["ok"] for i in range(TCP_N)),
+                      "every control port", 120)
+
+    def stop(self, i: int) -> dict | None:
+        """SIGTERM replica i's process: its server-stop line, or None."""
+        import signal
+
+        name = self.name[i]
+        p, log = self.procs[name]
+        self.ended.add(name)
         if p.poll() is None:
             p.send_signal(signal.SIGTERM)
             try:
-                p.wait(timeout=max(5.0, min(60.0, left())))
+                p.wait(timeout=max(5.0, min(60.0, self.left())))
             except subprocess.TimeoutExpired:
                 p.kill()
                 p.wait()
-        log.close()
-        procs[name + " stopped"] = (p, log)
-        for line in log_text(name).splitlines():
+        for line in self.log_text(name).splitlines():
             if line.startswith("{") and '"server-stop"' in line:
                 return json.loads(line)
         return None
 
-    class TimedClient(Client):
-        """The port's client, stamping each command's first send."""
+    def kill(self, i: int) -> None:
+        """SIGKILL replica i's process: a crash, its store as it was left."""
+        name = self.name[i]
+        p, _ = self.procs[name]
+        self.ended.add(name)
+        p.kill()
+        p.wait()
 
+    def stop_master(self) -> None:
+        import signal
+
+        p, _ = self.procs["master"]
+        self.ended.add("master")
+        p.send_signal(signal.SIGTERM)
+        try:
+            p.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+
+    def frontier(self, i: int) -> int:
+        return int(self.ctl(i, {"m": "ping"})["frontier"])
+
+    def stores(self) -> dict:
+        """Every replica's stable store (close them), after the stops."""
+        from minpaxos_tpu_torch.runtime.stable import StableStore
+
+        return {i: StableStore(os.path.join(self.work, f"stable-store-replica{i}"),
+                               sync=False) for i in range(TCP_N)}
+
+    def close(self) -> None:
+        """Kill whatever still runs and remove the stores."""
+        import shutil
+
+        for p, log in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        shutil.rmtree(self.work, ignore_errors=True)
+
+
+def timed_client_class():
+    """The port's client, stamping each command's first send and, per
+    success frame, its arrival time, the replica that served it and its
+    rows (``served``)."""
+    from minpaxos_tpu_torch.runtime.client import Client
+    from minpaxos_tpu_torch.wire.messages import MsgKind
+
+    class TimedClient(Client):
         def propose(self, cmd_ids, ops, keys, vals):
             t = time.monotonic()
             for c in np.asarray(cmd_ids).tolist():
                 self.sent.setdefault(c, t)
             super().propose(cmd_ids, ops, keys, vals)
 
+        def _on_frame(self, kind, rows, closed):
+            if kind == MsgKind.PROPOSE_REPLY and not closed.is_set():
+                ok = rows[rows["ok"] != 0]
+                if len(ok):
+                    self.served.append((time.monotonic(), int(ok["leader"][0]), len(ok)))
+            super()._on_frame(kind, rows, closed)
+
+    return TimedClient
+
+
+def timed(cli):
+    """``cli`` (or a MultiClient's connections) timed as TimedClient."""
+    cls = timed_client_class()
+    for c in getattr(cli, "clients", [cli]):
+        c.__class__ = cls
+        c.sent, c.served = {}, []
+    return cli
+
+
+def tcp_drive(cli, ids, wl, timeout_s: float) -> dict:
+    """Drive cmd_ids ``ids`` of the workload ``wl`` (ops, keys, vals)
+    through a client, or through a MultiClient round-robin (id j of the
+    list to connection j mod N, each connection's retry driver in a
+    thread, as MultiClient.run_workload does): acked of these ids and
+    the duplicates this drive added."""
+    import threading
+
+    clients = getattr(cli, "clients", [cli])
+    dups0 = sum(c.dup_replies for c in clients)
+    parts = [np.asarray(ids)[r::len(clients)] for r in range(len(clients))]
+    out: list = [None] * len(clients)
+
+    def run(r):
+        out[r] = clients[r].run_partition(parts[r], *wl, batch=TCP_BATCH, timeout_s=timeout_s)
+
+    threads = [threading.Thread(target=run, args=(r,), daemon=True)
+               for r in range(len(clients))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout_s + 10)
+    return dict(acked=sum(o["acked"] for o in out if o),
+                duplicates=sum(c.dup_replies for c in clients) - dups0)
+
+
+def latencies(cli, ids) -> list:
+    clients = getattr(cli, "clients", [cli])
+    out = []
+    for c in clients:
+        for i in ids:
+            if i in c.replies and i in c.sent:
+                out.append((c.replies[i]["t_arrive"] - c.sent[i]) * 1e3)
+    return out
+
+
+def tcp_workload(*parts) -> tuple:
+    """One table (ops, keys, vals) for a leg's commands, cmd_id = row: a
+    300-PUT warm-up on keys outside the measured range, then
+    ``gen_workload`` for each (n, seed) of ``parts``."""
+    from minpaxos_tpu_torch.runtime.client import gen_workload
+
+    wops, wkeys, wvals = gen_workload(WARM, seed=1)
+    drawn = [(wops, wkeys + 1_000_000, wvals)] + [gen_workload(n, seed=sd)
+                                                  for n, sd in parts]
+    return tuple(np.concatenate([d[j] for d in drawn]) for j in range(3))
+
+
+def warm_up(cl: TcpCluster, make_client, wl) -> tuple[int, dict]:
+    """Drive the warm-up rows of ``wl`` from a fresh client until one run
+    acks them all, as bench_tcp.py does (the boot election settles
+    before the measurement): the runs it took and their replies."""
+    runs, replies = 0, {}
+    while True:
+        runs += 1
+        c = make_client()
+        w = tcp_drive(c, np.arange(WARM), wl, min(60.0, cl.left()))
+        for sub in getattr(c, "clients", [c]):
+            replies.update(sub.replies)
+            sub.close_conn()
+        if w["acked"] == WARM:
+            return runs, replies
+
+
+def tcp_read_back(cl: TcpCluster, cli, wl, lo: int, hi: int, last: bool,
+                  batch: int = TCP_BATCH) -> tuple[tuple, dict]:
+    """Every key the commands [lo, hi) of ``wl`` wrote, read back through
+    READ frames on ``cli``: GETs appended to the workload, their cmd_ids
+    the new rows, ``batch`` at a time (a Mencius owner places its reads
+    in its own slots, every R-th, and bounces those past its window).
+    Reads a replica bounced are sent again (after a failover when it
+    named another leader). Returns the extended workload and the
+    counts; with ``last`` (one sequential client, so command order is
+    commit order), the reads that differ from the key's last write.
+    check_cluster holds every read to the committed log's order."""
+    from minpaxos_tpu_torch.wire.messages import Op
+
+    lastv: dict[int, int] = {}
+    for k, v in zip(wl[1][lo:hi].tolist(), wl[2][lo:hi].tolist()):
+        lastv[k] = v
+    want_k = np.fromiter(lastv.keys(), np.int64, len(lastv))
+    want_v = np.fromiter(lastv.values(), np.int64, len(lastv))
+    base = len(wl[0])
+    wl = (np.concatenate([wl[0], np.full(len(want_k), int(Op.GET), np.int64)]),
+          np.concatenate([wl[1], want_k]),
+          np.concatenate([wl[2], np.zeros(len(want_k), np.int64)]))
+    for lo_ in range(0, len(want_k), batch):
+        ids = base + np.arange(lo_, min(lo_ + batch, len(want_k)))
+        end = time.monotonic() + min(60.0, cl.left())
+        while time.monotonic() < end:
+            need = np.asarray([i for i in ids.tolist() if i not in cli.replies], np.int64)
+            if not len(need):
+                break
+            n_bounced = len(cli.rejected)
+            cli.read(need, wl[1][need])
+            if cli.wait(need, timeout_s=min(10.0, cl.left()), held=True):
+                break
+            if (len(cli.rejected) > n_bounced
+                    and cli.leader_hint in (-1, cli.connected_to)):
+                time.sleep(cli.BOUNCE_PAUSE_S)  # no room for them yet
+            else:
+                cli._failover()  # silent, or bounced toward another leader
+    got = np.asarray([cli.replies.get(int(base + i), {}).get("val", -1)
+                      for i in range(len(want_k))], np.int64)
+    out = dict(readback_keys=len(want_k),
+               readback_missing=int(sum(int(base + i) not in cli.replies
+                                        for i in range(len(want_k)))))
+    if last:
+        out["readback_wrong"] = int(((got != want_v) & (got != -1)).sum())
+    return wl, out
+
+
+def hold_stores(cl: TcpCluster, need: int, live: list[int], replies: dict,
+                wl) -> dict:
+    """The stable stores after every stop: the replicas' committed
+    prefixes agree record for record, the ``live`` replicas' cover at
+    least ``need`` slots, and the port's check_cluster passes over all
+    of them with every reply and the leg's workload (committed-slot and
+    snapshot agreement, every committed command one of the workload's,
+    every acked command in the log, every read's value one that the
+    log's order explains)."""
+    from minpaxos_tpu_torch.verify.invariants import check_cluster
+
+    stores = cl.stores()
+    try:
+        prefixes = [stores[i].committed_prefix() for i in range(TCP_N)]
+        upto = min(prefixes)
+        recs = [stores[i].read_range(0, upto) for i in range(TCP_N)]
+        agree = all(len(r) == upto + 1 for r in recs) and all(
+            np.array_equal(r[f], recs[0][f]) for r in recs[1:]
+            for f in ("inst", "op", "key", "val", "cmd_id", "client_id"))
+        report = check_cluster(stores, replies=replies, workload=wl)
+    finally:
+        for s_ in stores.values():
+            s_.close()
+    return dict(store_committed_prefixes=prefixes, stores_agree=agree,
+                stores_cover=min(prefixes[i] for i in live) >= need - 1,
+                check_cluster_ok=report.ok, check_cluster_slots=report.compared_slots,
+                check_cluster_gets=report.checked_gets,
+                check_cluster_violations=report.violations[:3])
+
+
+def serving_stats(cl: TcpCluster, i: int) -> dict:
+    """Replica i's serving counters through its control port, in the
+    server-stop line's terms (for a process about to be killed)."""
+    st = cl.ctl(i, {"m": "ping"})["stats"]
+    n = max(st["dispatches"], 1)
+    return dict(dispatches=st["dispatches"], fused_substeps=st["fused_substeps"],
+                executed=st["executed"], elections=st["elections"],
+                wall_ms_per_dispatch=st["dispatch_wall_us"] / 1e3 / n,
+                device_span_ms_per_dispatch=st["device_step_us"] / 1e3 / n,
+                max_memory_allocated=st.get("max_memory_allocated"))
+
+
+def kill_under_load(cl: TcpCluster, cli, ids, wl, victim: int, timeout_s: float) -> dict:
+    """Drive ``ids`` from a thread; once a quarter of them is acked,
+    SIGKILL replica ``victim``. Returns the drive's acked/duplicates and
+    the kill's monotonic time."""
+    import threading
+
+    res: dict = {}
+    t = threading.Thread(target=lambda: res.update(tcp_drive(cli, ids, wl, timeout_s)),
+                         daemon=True)
+    t.start()
+    clients = getattr(cli, "clients", [cli])
+    cl.wait_for(lambda: sum(sum(int(i) in c.replies for i in ids[::97]) for c in clients)
+                >= len(ids[::97]) // 4, "a quarter of the run acked", 120)
+    t_kill = time.monotonic()
+    cl.kill(victim)
+    t.join(timeout=timeout_s + 20)
+    return dict(res, t_kill=t_kill)
+
+
+def tcp_path(seed: int, busy: dict) -> dict:
+    """The TCP serving deployment (BASELINE config 1 at TCP_SHAPE): a
+    master and three durable MinPaxos replica servers (TcpCluster) and
+    the port's client in this process. Drives TCP_OPS checked PUTs
+    closed loop, stops a follower, drives TCP_EXTRA more, revives the
+    follower from its stable store until it catches up; then the leader
+    leg: TCP_FAIL checked PUTs from a client thread, the leader's
+    process SIGKILLed once a quarter of them is acked, the master
+    promoting the highest-frontier live replica and the client failing
+    over, every PUT acked exactly once; failover_s from the kill to the
+    first ack the new leader served; the old leader revived from its
+    store as the kill left it, until it reaches the new leader's
+    frontier. Then every written key read back through READ frames,
+    every server stopped, and the three stable stores held against each
+    other (hold_stores). Each server's kernel launches (after its boot
+    warm-up) come from the line it prints on stop; the killed leader's
+    serving counters are read through its control port just before the
+    kill. ``busy``: the compare phase's profile of one server dispatch
+    at this shape, carried into the line."""
+    from minpaxos_tpu_torch.runtime.client import Client
+
+    cl = TcpCluster("tcp", ["-min"], TCP_LIMIT_S)
     rec: dict = dict(phase="tcp", deployment="BASELINE config 1: master + "
                      f"{TCP_N} MinPaxos replica servers -min -durable "
                      + " ".join(TCP_SHAPE), client_batch=TCP_BATCH)
     stops: dict[str, dict] = {}
     try:
-        spawn("master", ["minpaxos_tpu_torch.cli.master", "-port", str(mport),
-                         "-N", str(TCP_N), "-ping", "0.5"])
-        for port in ports:
-            spawn(f"server{port}", server_args(port))
-        nodes = wait_for(lambda: (lambda r: r["ok"] and r["nodes"])(
-            _rpc(("127.0.0.1", mport), {"m": "get_replica_list"})),
-            "all replicas to register", 120)
-        rid = {int(p): i for i, (_, p) in enumerate(nodes)}
-        port_of = {i: p for p, i in rid.items()}
-        # every server answers ping; the master's leader leads, prepared
-        # (replica 0 self-elects at boot unless the master, finding it
-        # not yet up, promoted another replica first)
-        wait_for(lambda: all(ctl(p, {"m": "ping"})["ok"] for p in ports),
-                 "every control port", 120)
+        cl.boot()
 
         def leader_ready():
-            r = _rpc(("127.0.0.1", mport), {"m": "get_leader"})
+            r = cl.master_rpc({"m": "get_leader"})
             if not r.get("ok"):
                 return None
-            ping = ctl(port_of[int(r["leader"])], {"m": "ping"})
+            ping = cl.ctl(int(r["leader"]), {"m": "ping"})
             ok = ping["leader"] == int(r["leader"]) and ping["prepared"]
             return int(r["leader"]) + 1 if ok else None
 
-        wait_for(leader_ready, "a prepared leader", 120)
+        cl.wait_for(leader_ready, "a prepared leader", 120)
         # warm-up, as bench_tcp.py does: 300 checked PUTs on keys outside
         # the measured range, until one run completes — the boot
         # election (replica 0's own, or the master's promotion when it
         # pinged before replica 0 was up) settles before the measurement
-        wops, wkeys, wvals = gen_workload(300, seed=1)
-        warm_runs = 0
-        while True:
-            warm_runs += 1
-            wc = Client(("127.0.0.1", mport), check=True)
-            w = wc.run_workload(wops, wkeys + 1_000_000, wvals, timeout_s=min(60.0, left()))
-            wc.close_conn()
-            if w["acked"] == len(wops):
-                break
-        lead_id = wait_for(leader_ready, "a prepared leader", 120) - 1
-        rec.update(boot_s=time.monotonic() - t_phase, warmup_runs=warm_runs, leader=lead_id)
-        ops1, keys1, vals1 = gen_workload(TCP_OPS, seed=42)
-        ops2, keys2, vals2 = gen_workload(TCP_EXTRA, seed=43)
-        ops = np.concatenate([ops1, ops2])
-        keys = np.concatenate([keys1, keys2])
-        vals = np.concatenate([vals1, vals2])
-        cli = TimedClient(("127.0.0.1", mport), check=True)
-        cli.sent = {}
+        wl = tcp_workload((TCP_OPS, 42), (TCP_EXTRA, 43), (TCP_FAIL, 44))
+        o2, o3 = WARM + TCP_OPS, WARM + TCP_OPS + TCP_EXTRA
+        n_all = o3 + TCP_FAIL
+        warm_runs, replies = warm_up(cl, lambda: Client(("127.0.0.1", cl.mport), check=True),
+                                     wl)
+        lead_id = cl.wait_for(leader_ready, "a prepared leader", 120) - 1
+        rec.update(boot_s=time.monotonic() - cl.t0, warmup_runs=warm_runs, leader=lead_id)
+        cli = timed(Client(("127.0.0.1", cl.mport), check=True))
         t0 = time.perf_counter()
-        st1 = cli.run_partition(np.arange(TCP_OPS), ops, keys, vals, batch=TCP_BATCH,
-                                timeout_s=left())
+        st1 = tcp_drive(cli, np.arange(WARM, o2), wl, cl.left())
         wall = time.perf_counter() - t0
-        lat = [(cli.replies[c]["t_arrive"] - cli.sent[c]) * 1e3
-               for c in range(TCP_OPS) if c in cli.replies and c in cli.sent]
+        lat = latencies(cli, range(WARM, o2))
         rec.update(acked=st1["acked"], duplicates=st1["duplicates"], wall_s=wall,
                    ops_per_s=st1["acked"] / wall,
                    p50_latency_ms=_pctl(lat, 50), p99_latency_ms=_pctl(lat, 99))
-        # the fault leg: stop a follower (the highest id that does not
+        # the follower leg: stop a follower (the highest id that does not
         # lead), commit more, revive it
         fid = max(i for i in range(TCP_N) if i != lead_id)
-        follower = f"server{port_of[fid]}"
-        stops[f"replica{fid}_first_life"] = stop(follower)
-        st2 = cli.run_partition(np.arange(TCP_OPS, TCP_OPS + TCP_EXTRA), ops, keys, vals,
-                                batch=TCP_BATCH, timeout_s=left())
+        stops[f"replica{fid}_life1"] = cl.stop(fid)
+        st2 = tcp_drive(cli, np.arange(o2, o3), wl, cl.left())
         rec.update(fault_leg_acked=st2["acked"], fault_leg_duplicates=st2["duplicates"])
         t_rev = time.monotonic()
-        spawn(follower + "_revived", server_args(port_of[fid]))
-        target = ctl(port_of[lead_id], {"m": "ping"})["frontier"]
-        wait_for(lambda: ctl(port_of[fid], {"m": "ping"})["frontier"] >= target,
-                 f"the revived follower to reach frontier {target}", 180)
+        cl.start_server(fid)
+        target = cl.frontier(lead_id)
+        cl.wait_for(lambda: cl.frontier(fid) >= target,
+                    f"the revived follower to reach frontier {target}", 180)
         rec.update(leader_frontier_at_revive=target,
                    revived_catchup_s=time.monotonic() - t_rev)
-        # every written key read back through READ frames
-        last: dict[int, int] = {}
-        for k, v in zip(keys.tolist(), vals.tolist()):
-            last[k] = v
-        want_k = np.fromiter(last.keys(), np.int64, len(last))
-        want_v = np.fromiter(last.values(), np.int64, len(last))
-        base = 1 << 24
-        for lo in range(0, len(want_k), TCP_BATCH):
-            ids = base + np.arange(lo, min(lo + TCP_BATCH, len(want_k)))
-            cli.read(ids, want_k[lo:lo + TCP_BATCH])
-            if not cli.wait(ids, timeout_s=min(60.0, left())):
-                break
-        got = np.asarray([cli.replies.get(int(base + i), {}).get("val", -1)
-                          for i in range(len(want_k))], np.int64)
-        rec.update(readback_keys=len(want_k),
-                   readback_missing=int(sum(int(base + i) not in cli.replies
-                                            for i in range(len(want_k)))),
-                   readback_wrong=int(((got != want_v) & (got != -1)).sum()))
+        # the leader leg: SIGKILL the leader under load
+        lead_serving = serving_stats(cl, lead_id)
+        st3 = kill_under_load(cl, cli, np.arange(o3, n_all), wl, lead_id, cl.left())
+        new_lead = cl.wait_for(leader_ready, "a prepared new leader", 60) - 1
+        after = [t for t, who, _ in cli.served if who == new_lead and t > st3["t_kill"]]
+        rec.update(leader_leg_acked=st3["acked"], leader_leg_duplicates=st3["duplicates"],
+                   new_leader=new_lead,
+                   failover_s=(min(after) - st3["t_kill"]) if after else None,
+                   new_leader_elections=cl.ctl(new_lead, {"m": "ping"})["stats"]["elections"],
+                   client_failovers=cli.metrics.counters()["failovers"])
+        t_rev = time.monotonic()
+        cl.start_server(lead_id)
+        target = cl.frontier(new_lead)
+        cl.wait_for(lambda: cl.frontier(lead_id) >= target,
+                    f"the revived old leader to reach frontier {target}", 180)
+        rec.update(new_leader_frontier_at_revive=target,
+                   old_leader_catchup_s=time.monotonic() - t_rev,
+                   leader_after_revive=cl.wait_for(leader_ready, "a prepared leader", 60) - 1)
+        wl, rb = tcp_read_back(cl, cli, wl, WARM, n_all, last=True)
+        rec.update(rb)
         cli.close_conn()
+        replies.update(cli.replies)
         for i in range(TCP_N):
-            name = f"server{port_of[i]}" + ("_revived" if i == fid else "")
-            stops[f"replica{i}"] = stop(name)
-        stop("master")
-        # the three durable logs agree on their committed prefix
-        stores = [StableStore(os.path.join(work, f"stable-store-replica{i}"), sync=False)
-                  for i in range(TCP_N)]
-        try:
-            prefixes = [s_.committed_prefix() for s_ in stores]
-            upto = min(prefixes)
-            recs = [s_.read_range(0, upto) for s_ in stores]
-            agree = all(len(r) == upto + 1 for r in recs) and all(
-                np.array_equal(r[f], recs[0][f]) for r in recs[1:]
-                for f in ("inst", "op", "key", "val", "cmd_id", "client_id"))
-        finally:
-            for s_ in stores:
-                s_.close()
-        rec.update(store_committed_prefixes=prefixes, stores_agree=agree)
+            stops[cl.name[i]] = cl.stop(i)
+        cl.stop_master()
+        rec.update(hold_stores(cl, n_all, list(range(TCP_N)), replies, wl))
     finally:
-        for name, (p, log) in list(procs.items()):
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-            log.close()
-        shutil.rmtree(os.path.join(HERE, ".tcp_smoke"), ignore_errors=True)
-    lead = stops.get(f"replica{rec.get('leader')}") or {}
+        cl.close()
     rec.update(
-        dispatches=lead.get("dispatches"),
-        wall_ms_per_dispatch=lead.get("wall_ms_per_dispatch"),
-        device_span_ms_per_dispatch=lead.get("device_span_ms_per_dispatch"),
+        dispatches=lead_serving.get("dispatches"),
+        wall_ms_per_dispatch=lead_serving.get("wall_ms_per_dispatch"),
+        device_span_ms_per_dispatch=lead_serving.get("device_span_ms_per_dispatch"),
         device_busy_ms_per_dispatch=busy.get("dispatch_device_ms"),
         kernel_launches_per_dispatch=busy.get("dispatch_kernel_launches"),
+        killed_leader_serving=lead_serving,
         servers={k: {f: v.get(f) for f in (
             "dispatches", "fused_substeps", "executed", "wall_ms_per_dispatch",
             "device_span_ms_per_dispatch", "max_memory_allocated", "launches", "fatal")}
             if v else None for k, v in stops.items()},
-        phase_s=time.monotonic() - t_phase)
+        phase_s=time.monotonic() - cl.t0)
+    rec["launches"] = sum_launches(stops)
+    emit(rec)
+    bad = []
+    for leg, n, acked, dups in (("", TCP_OPS, "acked", "duplicates"),
+                                ("follower leg ", TCP_EXTRA, "fault_leg_acked",
+                                 "fault_leg_duplicates"),
+                                ("leader leg ", TCP_FAIL, "leader_leg_acked",
+                                 "leader_leg_duplicates")):
+        if rec[acked] != n or rec[dups]:
+            bad.append(f"{leg}{rec[acked]}/{n} acked, {rec[dups]} duplicates")
+    if rec["new_leader"] == lead_id or rec["failover_s"] is None:
+        bad.append(f"no failover: new leader {rec['new_leader']}, "
+                   f"failover_s {rec['failover_s']}")
+    bad += store_faults(rec)
+    bad += stop_faults(stops, "tcp")
+    if bad:
+        fail("tcp", "; ".join(bad))
+    return rec
+
+
+def sum_launches(stops: dict) -> dict:
     launches: dict[str, int] = {}
     for v in stops.values():
         for k, n in ((v or {}).get("launches") or {}).items():
             launches[k] = launches.get(k, 0) + n
-    rec["launches"] = launches
-    emit(rec)
+    return launches
+
+
+def store_faults(rec: dict) -> list[str]:
+    """The read-back's and hold_stores' failures in ``rec``."""
     bad = []
-    if rec["acked"] != TCP_OPS or rec["duplicates"]:
-        bad.append(f"{rec['acked']}/{TCP_OPS} acked, {rec['duplicates']} duplicates")
-    if rec["fault_leg_acked"] != TCP_EXTRA or rec["fault_leg_duplicates"]:
-        bad.append(f"fault leg {rec['fault_leg_acked']}/{TCP_EXTRA} acked, "
-                   f"{rec['fault_leg_duplicates']} duplicates")
-    if rec["readback_missing"] or rec["readback_wrong"]:
+    if rec["readback_missing"] or rec.get("readback_wrong"):
         bad.append(f"read-back: {rec['readback_missing']} missing, "
-                   f"{rec['readback_wrong']} wrong of {rec['readback_keys']}")
-    if not rec["stores_agree"] or min(rec["store_committed_prefixes"]) < TCP_OPS + TCP_EXTRA - 1:
+                   f"{rec.get('readback_wrong')} wrong of {rec['readback_keys']}")
+    if not (rec["stores_agree"] and rec["stores_cover"] and rec["check_cluster_ok"]):
         bad.append(f"stable stores: prefixes {rec['store_committed_prefixes']}, "
-                   f"agree {rec['stores_agree']}")
+                   f"agree {rec['stores_agree']}, cover {rec['stores_cover']}, "
+                   f"check_cluster {rec['check_cluster_violations']}")
+    return bad
+
+
+def stop_faults(stops: dict, path: str) -> list[str]:
+    """Every stop line clean, and every kernel of ``path`` launched in
+    each server's life while it served."""
+    bad = []
     for k, v in stops.items():
         if not v or v.get("fatal") or not v.get("joined", False):
             bad.append(f"{k}: no clean stop ({v})")
             continue
-        missing = [n for n in KERNELS["tcp"] if not v["launches"].get(n)]
+        missing = [n for n in KERNELS[path] if not v["launches"].get(n)]
         if missing:
             bad.append(f"{k}: kernels never launched while serving: {missing}")
+    return bad
+
+
+def tcp_mencius_path(seed: int) -> dict:
+    """The Mencius TCP deployment (bench_tcp.py's
+    mencius_tcp_3rep_durable): a master and three durable Mencius
+    replica servers (-m -durable at TCP_SHAPE, TcpCluster), driven by
+    the round-robin MultiClient with check=True (every owner proposes
+    into its own slots). TCP_M_OPS checked PUTs; an owner SIGKILLed and
+    TCP_M_EXTRA more driven through the takeover of its slots; the
+    owner revived from its store as the kill left it, until it heals to
+    the cluster's frontier (heal_s, boot included); every key those
+    legs wrote read back; then a single client proposing to the
+    master's hint, TCP_M_FAIL PUTs, that replica SIGKILLed once a
+    quarter is acked, commits going on exactly once through the
+    failover and the dead owner's takeover; every server stopped and
+    the stores held (hold_stores; the last victim's store agrees up to
+    its prefix).
+    Every stop line must show each kernel of KERNELS["tcp_mencius"]."""
+    from minpaxos_tpu_torch.runtime.client import Client, MultiClient
+
+    cl = TcpCluster("tcp_mencius", ["-m"], TCP_M_LIMIT_S)
+    rec: dict = dict(phase="tcp_mencius", deployment="mencius_tcp_3rep_durable "
+                     "(bench_tcp.py): master + "
+                     f"{TCP_N} Mencius replica servers -m -durable " + " ".join(TCP_SHAPE),
+                     client="MultiClient rr check=True", client_batch=TCP_BATCH)
+    stops: dict[str, dict] = {}
+    try:
+        cl.boot()
+        maddr = ("127.0.0.1", cl.mport)
+        wl = tcp_workload((TCP_M_OPS, 52), (TCP_M_EXTRA, 53), (TCP_M_FAIL, 54))
+        o2, o3 = WARM + TCP_M_OPS, WARM + TCP_M_OPS + TCP_M_EXTRA
+        n_all = o3 + TCP_M_FAIL
+        warm_runs, replies = warm_up(cl, lambda: MultiClient(maddr, check=True, mode="rr"),
+                                     wl)
+        rec.update(boot_s=time.monotonic() - cl.t0, warmup_runs=warm_runs)
+        mc = timed(MultiClient(maddr, check=True, mode="rr"))
+        t0 = time.perf_counter()
+        st1 = tcp_drive(mc, np.arange(WARM, o2), wl, cl.left())
+        wall = time.perf_counter() - t0
+        lat = latencies(mc, range(WARM, o2))
+        rec.update(acked=st1["acked"], duplicates=st1["duplicates"], wall_s=wall,
+                   ops_per_s=st1["acked"] / wall,
+                   p50_latency_ms=_pctl(lat, 50), p99_latency_ms=_pctl(lat, 99))
+        # the owner leg: the highest id is not the master's hint
+        hint = int(cl.master_rpc({"m": "get_leader"})["leader"])
+        owner = max(i for i in range(TCP_N) if i != hint)
+        cl.kill(owner)
+        t_leg = time.monotonic()
+        st2 = tcp_drive(mc, np.arange(o2, o3), wl, cl.left())
+        rec.update(killed_owner=owner, takeover_leg_acked=st2["acked"],
+                   takeover_leg_duplicates=st2["duplicates"],
+                   takeover_leg_s=time.monotonic() - t_leg)
+        t_rev = time.monotonic()
+        cl.start_server(owner)
+        others = [i for i in range(TCP_N) if i != owner]
+        target = max(cl.frontier(i) for i in others)
+        cl.wait_for(lambda: cl.frontier(owner) >= target,
+                    f"the revived owner to heal to frontier {target}", 180)
+        rec.update(frontier_at_revive=target, heal_s=time.monotonic() - t_rev)
+        # read back while every owner lives: with one dead, each slot of
+        # its interleaved slots waits for a takeover sweep
+        t_leg = time.monotonic()
+        wl, rb = tcp_read_back(cl, mc.clients[0], wl, WARM, o3, last=False,
+                               batch=TCP_BATCH // TCP_N)
+        rec.update(rb, readback_s=time.monotonic() - t_leg)
+        mc.close()
+        for c in mc.clients:
+            replies.update(c.replies)
+        # the proposer leg: one client on the master's hint, which dies
+        cli = timed(Client(maddr, check=True))
+        cli.connect()
+        victim = cli.connected_to
+        t_leg = time.monotonic()
+        st3 = kill_under_load(cl, cli, np.arange(o3, n_all), wl, victim, cl.left())
+        after = [t for t, who, _ in cli.served if who != victim and t > st3["t_kill"]]
+        rec.update(killed_proposer=victim, proposer_leg_acked=st3["acked"],
+                   proposer_leg_duplicates=st3["duplicates"],
+                   proposer_leg_s=time.monotonic() - t_leg,
+                   failover_s=(min(after) - st3["t_kill"]) if after else None,
+                   client_failovers=cli.metrics.counters()["failovers"])
+        live = [i for i in range(TCP_N) if i != victim]
+        # the dead owner's slots taken over: every live replica commits
+        # every slot either has seen (Mencius acks a committed slot above
+        # a gap, so the stores' prefixes cover every ack only then)
+        def settled():
+            pings = [cl.ctl(i, {"m": "ping"}) for i in live]
+            return min(p["frontier"] for p in pings) >= max(p["crt_inst"] for p in pings) - 1
+
+        t_leg = time.monotonic()
+        cl.wait_for(settled, "the live replicas to settle", 120)
+        rec.update(settle_s=time.monotonic() - t_leg)
+        cli.close_conn()
+        replies.update(cli.replies)
+        for i in live:
+            stops[cl.name[i]] = cl.stop(i)
+        cl.stop_master()
+        rec.update(hold_stores(cl, n_all, live, replies, wl))
+    finally:
+        cl.close()
+    rec.update(servers={k: {f: v.get(f) for f in (
+        "dispatches", "fused_substeps", "executed", "wall_ms_per_dispatch",
+        "device_span_ms_per_dispatch", "max_memory_allocated", "launches", "fatal")}
+        if v else None for k, v in stops.items()},
+        phase_s=time.monotonic() - cl.t0)
+    rec["launches"] = sum_launches(stops)
+    emit(rec)
+    bad = []
+    for leg, n, acked, dups in (("", TCP_M_OPS, "acked", "duplicates"),
+                                ("takeover leg ", TCP_M_EXTRA, "takeover_leg_acked",
+                                 "takeover_leg_duplicates"),
+                                ("proposer leg ", TCP_M_FAIL, "proposer_leg_acked",
+                                 "proposer_leg_duplicates")):
+        if rec[acked] != n or rec[dups]:
+            bad.append(f"{leg}{rec[acked]}/{n} acked, {rec[dups]} duplicates")
+    if rec["failover_s"] is None:
+        bad.append("no ack served by another replica after the proposer's kill")
+    bad += store_faults(rec)
+    bad += stop_faults(stops, "tcp_mencius")
     if bad:
-        fail("tcp", "; ".join(bad))
+        fail("tcp_mencius", "; ".join(bad))
     return rec
+
 
 def count_diffs(got, want, where: str = "") -> list[str]:
     """Every MC_COUNT_FIELDS entry of ``want`` (a committed verdict)
@@ -2575,6 +3091,8 @@ def main() -> None:
         if path == "tcp":
             res[path]["pack_outputs"], extra = compare_tcp(dev, args.seed)
             probe = extra.pop("_dispatch_probe")
+        elif path == "tcp_mencius":
+            res[path]["pack_outputs"] = compare_pack_mencius(dev, args.seed)
         emit(dict(phase="compare", path=path, card=smi,
                   kv_apply_max_abs_err=apply_err[path],
                   **(extra if path == "tcp" else {}),
@@ -2625,11 +3143,13 @@ def main() -> None:
     emit(dict(phase="dispatch_profile", **busy))
     del probe
     recs["tcp"] = tcp_path(args.seed, busy)
+    recs["tcp_mencius"] = tcp_mencius_path(args.seed)
 
-    # one row per (kernel, path): the MinPaxos path's rows under the
-    # kernel's name, the other paths' as name@path (a kernel of one path
-    # only keeps its bare name); TCP launches are summed over the servers
+    # one row per (kernel, path): a kernel's first path's row under the
+    # kernel's name, its later paths' as name@path; TCP launches are
+    # summed over the servers' stop lines
     table = []
+    named: set[str] = set()
     for path, names in KERNELS.items():
         for name in names:
             src, repl = REPLACES[name]
@@ -2641,9 +3161,7 @@ def main() -> None:
             t_bytes = 1e3 * v["bytes"] / HBM_BYTES_PER_S
             t_ops = 1e3 * v["ops"] / ALU_OPS_PER_S
             table.append(dict(
-                name=name if path == "minpaxos" or name in ("exec_select", "pack_outputs",
-                                                            "gather_rows")
-                else f"{name}@{path}",
+                name=f"{name}@{path}" if name in named else name,
                 route="cuda", source=src, replaces=repl, path=path,
                 launches=recs[path]["launches"].get(name, 0), max_abs_err=v["err"],
                 ms=v["ms"], host_ms=v["host_ms"], plain_ms=v["plain_ms"],
@@ -2655,6 +3173,7 @@ def main() -> None:
                         "batch_bound_ms_mencius"):
                 if v.get(key) is not None:
                     table[-1][key] = v[key]
+            named.add(name)
     # the mc phase's rows (name@mc): each kernel at the model checker's
     # chunk of 8,192 rows (K6 in the Mencius form),
     # launches summed over the phase's legs

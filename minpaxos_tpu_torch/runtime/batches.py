@@ -40,6 +40,8 @@ COLS = ("kind", "src", "ballot", "inst", "last_committed", "op",
 #: coalescer, but keeping the literal avoids a runtime import cycle;
 #: the wire ledger pins the queue item protocol, not this module)
 _FROM_CLIENT = 1
+#: mirrors replica.CONTROL, the tag of the bounce items put() queues
+_CONTROL = 3
 
 #: per-drain coalesced-row buckets for the occupancy histogram —
 #: powers of two up to the largest inbox the shape ladder drives
@@ -73,10 +75,11 @@ class IngressCoalescer:
       disables lingering entirely.
     * **Admission control** — when ``admit_gate`` (wired by the
       replica to the exec-backlog and window-occupancy bounds)
-      reports overload AND the pending client rows already exceed ``max_rows``, new PROPOSE frames are dropped at
-      ingress and counted (legal: Paxos tolerates loss, clients retry
-      with the same cmd_id) — overload degrades to bounded queueing
-      instead of an unbounded tail.
+      reports overload AND the pending client rows already exceed ``max_rows``, new PROPOSE frames are refused at
+      ingress and counted: only their cmd_ids are queued, for the
+      protocol thread to answer with ok = 0 (the client sends them
+      again) — overload degrades to bounded queueing instead of an
+      unbounded tail.
 
     Lock discipline: every
     mutation happens under the wakeup condition variable, and nothing
@@ -135,6 +138,9 @@ class IngressCoalescer:
                     and self._pending_rows + n > self.max_rows
                     and self._admit_gate()):
                 self._c_rejects.inc(n)
+                self._items.append((_CONTROL, item[1], "bounce",
+                                    item[3]["cmd_id"].copy()))
+                self._cv.notify()
                 return
             self._items.append(item)
             self._pending_rows += n

@@ -17,7 +17,11 @@ whose measurement styles the CLI reproduces.
 Retry semantics: unacknowledged commands are re-sent with the SAME
 cmd_id after failover, and replies are deduplicated by cmd_id — an
 explicit upgrade over the reference, which restarts CommandIds from 0
-on retry and can observe duplicates (clientretry.go:152).
+on retry and can observe duplicates (clientretry.go:152). On one
+connection a command is sent again only after the server bounced it
+(a reply with ok = 0): a server answers every command it holds exactly
+once, by a reply or a bounce, and a re-send racing the reply would take
+a second slot and bring a second reply.
 """
 
 from __future__ import annotations
@@ -62,6 +66,13 @@ def gen_workload(n: int, conflict_pct: int = 0, key_range: int = 100000,
 class Client:
     """One TCP connection to one replica + reply collection thread."""
 
+    # waits in a row that ack nothing on a live connection before the
+    # client fails over anyway (a server that holds its commands but no
+    # longer answers)
+    STALL_WAITS = 3
+    # seconds before commands a server bounced are sent again
+    BOUNCE_PAUSE_S = 0.05
+
     def __init__(self, maddr: tuple[str, int], check: bool = False,
                  backoff_seed: int | None = None):
         self.maddr = maddr
@@ -73,6 +84,9 @@ class Client:
         self.replies: dict[int, dict] = {}  # cmd_id -> reply
         self.dup_replies = 0
         self.rejected: list[int] = []
+        # cmd_ids sent on this connection and neither answered nor
+        # bounced yet: the server holds them
+        self._outstanding: set[int] = set()
         # client-side registry: retries and failovers are
         # otherwise invisible in bench artifacts (a trial that quietly
         # failed over twice is not the same measurement as a clean one)
@@ -101,6 +115,8 @@ class Client:
         self._got = threading.Condition(self._lock)
         self._reader: threading.Thread | None = None
         self._closed = threading.Event()
+        self._ended = threading.Event()
+        self._stalls = 0
         # permanent shutdown (unlike _closed, never cleared): a
         # wait_less straggler partition must stop retrying when its
         # MultiClient is closed, not resurrect the connection via
@@ -112,7 +128,15 @@ class Client:
 
     def connect(self, replica: int | None = None) -> None:
         self.close_conn()
-        self._closed.clear()
+        # one event per connection: the reader of a connection that was
+        # closed drops whatever still arrives on it, so a failover never
+        # hears the abandoned connection's replies (its commands may
+        # also commit in the slots the re-proposal takes)
+        self._closed = threading.Event()
+        self._ended = threading.Event()  # the server ended the connection
+        self._stalls = 0
+        with self._lock:
+            self._outstanding = set()
         rid = self.leader if replica is None else replica
         host, port = self.nodes[rid]
         self.sock = socket.create_connection((host, port), timeout=5.0)
@@ -124,23 +148,31 @@ class Client:
         # later reply went unread
         self.sock.settimeout(None)
         self.writer = FrameWriter(self.sock)
-        self._reader = threading.Thread(target=self._read_loop, daemon=True)
+        self._reader = threading.Thread(
+            target=self._read_loop, args=(self.sock, self._closed, self._ended),
+            daemon=True)
         self._reader.start()
         self.connected_to = rid
 
     def close_conn(self) -> None:
         self._closed.set()
         if self.sock is not None:
+            # shutdown wakes the reader blocked in recv: close alone
+            # leaves the connection open while that call holds it
+            try:
+                self.sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
             try:
                 self.sock.close()
             except OSError:
                 pass
             self.sock = None
 
-    def _read_loop(self) -> None:
+    def _read_loop(self, sock: socket.socket, closed: threading.Event,
+                   ended: threading.Event) -> None:
         dec = StreamDecoder()
-        sock = self.sock
-        while not self._closed.is_set():
+        while not closed.is_set():
             try:
                 chunk = sock.recv(1 << 16)
             except OSError:
@@ -149,21 +181,26 @@ class Client:
                 break
             try:
                 for kind, rows in dec.feed(chunk):
-                    self._on_frame(kind, rows)
+                    self._on_frame(kind, rows, closed)
             except ValueError:
                 break  # corrupt frame: close and let failover re-dial
             if dec.error is not None:
                 break
+        if not closed.is_set():
+            ended.set()
         with self._got:
             self._got.notify_all()
 
-    def _on_frame(self, kind: MsgKind, rows: np.ndarray) -> None:
+    def _on_frame(self, kind: MsgKind, rows: np.ndarray,
+                  closed: threading.Event) -> None:
         if kind not in (MsgKind.PROPOSE_REPLY, MsgKind.READ_REPLY):
             return
         # t_arrive: reader-thread arrival time (one stamp per frame —
         # the rows arrived together), for the open-loop latency probe
         t = time.monotonic()
         with self._got:
+            if closed.is_set():
+                return  # the connection was abandoned (see connect)
             # column extraction + zip over plain Python scalars: per-row
             # structured access (r["field"]) cost ~0.8 ms per 512-row
             # frame of pure client CPU on the shared bench core
@@ -172,11 +209,14 @@ class Client:
                 rej = rows[~okm]
                 if len(rej):
                     self.leader_hint = int(rej["leader"][-1])
-                    self.rejected.extend(rej["cmd_id"].tolist())
+                    bounced = rej["cmd_id"].tolist()
+                    self.rejected.extend(bounced)
+                    self._outstanding.difference_update(bounced)
                     rows = rows[okm]
                 replies = self.replies
-                for cmd, val, ts in zip(rows["cmd_id"].tolist(),
-                                        rows["val"].tolist(),
+                cmds = rows["cmd_id"].tolist()
+                self._outstanding.difference_update(cmds)
+                for cmd, val, ts in zip(cmds, rows["val"].tolist(),
                                         rows["timestamp"].tolist()):
                     if cmd in replies:
                         self.dup_replies += 1  # -check duplicates
@@ -185,8 +225,9 @@ class Client:
                                         "ts": ts}
             else:
                 replies = self.replies
-                for cmd, val in zip(rows["cmd_id"].tolist(),
-                                    rows["val"].tolist()):
+                cmds = rows["cmd_id"].tolist()
+                self._outstanding.difference_update(cmds)
+                for cmd, val in zip(cmds, rows["val"].tolist()):
                     if cmd in replies:
                         self.dup_replies += 1
                     else:
@@ -200,6 +241,8 @@ class Client:
                            op=np.asarray(ops), key=np.asarray(keys),
                            val=np.asarray(vals),
                            timestamp=time.monotonic_ns())
+        with self._lock:
+            self._outstanding.update(frame["cmd_id"].tolist())
         self.writer.write(MsgKind.PROPOSE, frame)
         self.writer.flush()
         self._c_proposed.inc(len(frame))
@@ -207,11 +250,16 @@ class Client:
     def read(self, cmd_ids, keys) -> None:
         frame = make_batch(MsgKind.READ, cmd_id=np.asarray(cmd_ids, np.int32),
                            key=np.asarray(keys))
+        with self._lock:
+            self._outstanding.update(frame["cmd_id"].tolist())
         self.writer.write(MsgKind.READ, frame)
         self.writer.flush()
 
-    def wait(self, cmd_ids, timeout_s: float = 10.0) -> bool:
-        """Block until every cmd_id has a success reply (or timeout)."""
+    def wait(self, cmd_ids, timeout_s: float = 10.0,
+             held: bool = False) -> bool:
+        """Block until every cmd_id has a success reply (or timeout);
+        with ``held``, also return once one of them is no longer held by
+        the server (bounced: it must be sent again)."""
         deadline = time.monotonic() + timeout_s
         want = set(int(c) for c in cmd_ids)
         with self._got:
@@ -220,8 +268,9 @@ class Client:
                 if not missing:
                     return True
                 left = deadline - time.monotonic()
-                if left <= 0 or self._closed.is_set():
-                    return not missing
+                if (left <= 0 or self._closed.is_set()
+                        or held and not missing <= self._outstanding):
+                    return False
                 self._got.wait(timeout=min(left, 0.25))
 
     # -- the retry driver (clientretry.go:120-150 semantics) --
@@ -261,32 +310,50 @@ class Client:
             with self._lock:
                 head = [c for c in pending[:batch]
                         if c not in self.replies]
+                # send what this connection does not hold (see the
+                # module's retry semantics)
+                fresh = [c for c in head if c not in self._outstanding]
             tail = pending[batch:]
             if not head:
                 pending = tail
                 continue
-            w = np.asarray(head)
             broken = False
+            n_bounced = len(self.rejected)
+            t_wait = time.monotonic()
             try:
-                self.propose(w, ops[w], keys[w], vals[w])
-                ok = self.wait(w, timeout_s=3.0)
+                if fresh:
+                    w = np.asarray(fresh)
+                    self.propose(w, ops[w], keys[w], vals[w])
+                ok = self.wait(head, timeout_s=3.0, held=True)
             except OSError:
                 ok, broken = False, True
             if ok:
+                self._stalls = 0
                 pending = tail
-            else:
-                # only fail over when the connection died or NOTHING
-                # acked — a slow-but-live cluster keeps the SAME
-                # connection, so the server's same-connection dedup
-                # absorbs the re-proposal instead of a fresh conn_id
-                # allocating duplicate slots (the retry-storm
-                # amplifier; reconnecting on every timeout made the
-                # dedup unreachable)
-                with self._lock:
-                    progressed = any(c in self.replies for c in head)
-                if broken or not progressed:
-                    self._failover()
-                pending = head + tail
+                continue
+            # fail over when the connection ended, when a bounce during
+            # this wait names another leader, or after STALL_WAITS full
+            # waits in a row that acked nothing. A slow but live server
+            # keeps the SAME connection: it answers every command it
+            # holds there, and re-sending them on a fresh conn_id would
+            # commit them twice (a retry storm behind a slow Mencius
+            # takeover). A wait a bounce ended early re-sends the bounced
+            # commands after a pause (backpressure).
+            early = time.monotonic() - t_wait < 3.0
+            with self._lock:
+                progressed = any(c in self.replies for c in head)
+                hint = self.leader_hint
+                moved = (len(self.rejected) > n_bounced
+                         and 0 <= hint < len(self.nodes)
+                         and hint != self.connected_to)
+            if not early:
+                self._stalls = 0 if progressed else self._stalls + 1
+            if (broken or moved or self._ended.is_set()
+                    or self._stalls >= self.STALL_WAITS):
+                self._failover()
+            elif early:
+                time.sleep(self.BOUNCE_PAUSE_S)
+            pending = head + tail
         with self._lock:
             done = sum(1 for c in idx if int(c) in self.replies)
         return {"sent": n, "acked": done,

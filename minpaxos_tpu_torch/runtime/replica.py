@@ -356,6 +356,12 @@ class ReplicaServer:
         self._inflight: _InflightTick | None = None
         self._narrow_doubt = False
         self.warm_launches: dict[str, int] = {}
+        # _report_frontier: the frontier, since when it stands, and the
+        # last report's time
+        self._report_fr = -2
+        self._report_since = self._report_last = 0.0
+        # READ rows that found the inbox full, drained first next tick
+        self._carry: list = []
 
     @property
     def stats(self) -> dict:
@@ -876,7 +882,8 @@ class ReplicaServer:
         elect = False
         t0 = time.perf_counter()
         try:
-            item = self.queue.get(timeout=timeout_s)
+            item = (self._carry.pop() if self._carry
+                    else self.queue.get(timeout=timeout_s))
         except queue.Empty:
             self._drain_wait_s = time.perf_counter() - t0
             return False
@@ -892,6 +899,8 @@ class ReplicaServer:
                         self._boot_pending = time.monotonic() + 0.5
                     else:
                         elect = True
+                elif kind == "bounce":
+                    self._bounce(conn_id, rows)  # refused at ingress
                 elif kind == "send_beacon":
                     rows = make_batch(MsgKind.BEACON, rid=self.me,
                                       timestamp=np.uint64(cputicks()))
@@ -912,7 +921,13 @@ class ReplicaServer:
                     self.rtt_ewma[q] = (rtt if np.isinf(old)
                                         else 0.99 * old + 0.01 * rtt)
             elif kind == MsgKind.READ:
-                # linearizable read: through the log as a GET
+                # linearizable read: through the log as a GET. A READ
+                # has no bounce (its reply carries no ok), so the rows
+                # past the inbox's room wait for the next drain
+                room = max(self.inbox.room(), 0)
+                if room < len(rows):
+                    self._carry.append((src_kind, conn_id, kind, rows[room:]))
+                    rows = rows[:room]
                 n = len(rows)
                 k_hi, k_lo = split_i64(rows["key"])
                 self.inbox.append(
@@ -955,7 +970,9 @@ class ReplicaServer:
                         rows = rows[fresh]
                     # truncate to inbox room BEFORE registering: a row
                     # registered but dropped would blackhole its retries
-                    rows = rows[:max(self.inbox.room(), 0)]
+                    room = max(self.inbox.room(), 0)
+                    self._bounce(conn_id, rows["cmd_id"][room:])
+                    rows = rows[:room]
                     for c in rows["cmd_id"]:
                         self._pending[(conn_id, int(c))] = MsgKind.PROPOSE_REPLY
                     self._c_proposals.inc(len(rows))
@@ -966,6 +983,10 @@ class ReplicaServer:
                     # a sweep asking about slots below our window: the
                     # stable store's mirror answers with COMMIT rows
                     self._store_answer_sweep(rows)
+                elif (kind == MsgKind.ACCEPT_REPLY
+                      and self.protocol == "mencius"
+                      and not rows["ok"].all()):
+                    self._store_answer_report(rows[rows["ok"] == 0])
                 batches.frame_to_rows(self.inbox, kind, rows, conn_id)
             if self.inbox.room() <= 0:
                 break
@@ -974,6 +995,20 @@ class ReplicaServer:
             except queue.Empty:
                 break
         return elect
+
+    def _bounce(self, conn_id: int, cmd_ids) -> None:
+        """Answer client commands this replica does not hold (no inbox
+        room, or refused at ingress) with ok = 0: the client sends them
+        again (runtime/client.py's retry semantics)."""
+        if len(cmd_ids) == 0:
+            return
+        lead = self.snapshot["leader"]
+        frame = make_batch(MsgKind.PROPOSE_REPLY, ok=0,
+                           cmd_id=np.asarray(cmd_ids, np.int32), val=0,
+                           timestamp=monotonic_ns(),
+                           leader=np.int8(lead if lead >= 0 else self.me))
+        self.transport.send_client(conn_id, MsgKind.PROPOSE_REPLY, frame)
+        self.transport.flush_all()
 
     def _store_commit_frame(self, lo: int, hi: int, frontier: int):
         """A COMMIT frame of store-mirror records for [lo, hi], or None."""
@@ -1010,6 +1045,26 @@ class ReplicaServer:
         if frame is not None:
             self._send_or_redial(q, MsgKind.COMMIT, frame)
         self.transport.flush_all()
+
+    def _store_answer_report(self, rows) -> None:
+        """Serve a Mencius peer that reported a frontier below ours
+        (_report_frontier) from the durable mirror: COMMIT rows from its
+        frontier up, half an inbox of them (a Mencius store is never
+        truncated, so it holds the slots that slid out of our window as
+        well as those the device could push, models/mencius.py 9d)."""
+        top = self.store.committed_prefix()
+        sent = False
+        for q in np.unique(rows["id"]).tolist():
+            lc = int(rows["last_committed"][rows["id"] == q].min())
+            if not (0 <= q < self.cfg.n_replicas) or q == self.me or lc >= top:
+                continue
+            hi = min(lc + max(self.cfg.inbox // 2, 1), top)
+            frame = self._store_commit_frame(lc + 1, hi, self.snapshot["frontier"])
+            if frame is not None:
+                self._send_or_redial(q, MsgKind.COMMIT, frame)
+                sent = True
+        if sent:
+            self.transport.flush_all()
 
     def _become_leader(self) -> None:
         if self.protocol == "mencius":
@@ -1265,6 +1320,7 @@ class ReplicaServer:
                 self._dispatch(flat, out_mats[:, ncols, :].reshape(-1))
             self._reply_stacked(exec_mats, scals, k, rec.frontier)
             self._host_catchup(rec.peer_commits, rec.snap)
+            self._report_frontier(rec.snap)
             self.transport.flush_all()
         host_s = time.perf_counter() - t_f0
         if overlapped:
@@ -1493,6 +1549,38 @@ class ReplicaServer:
                 int(pc[q]) + 1, min(int(pc[q]) + 256, base - 1), fr)
             if frame is not None:
                 self._send_or_redial(q, MsgKind.COMMIT, frame)
+
+    # seconds a Mencius frontier stays stuck before it is reported, and
+    # between two reports
+    _REPORT_S = 0.05
+
+    def _report_frontier(self, snap: dict) -> None:
+        """Mencius heal push. Peers catch a lagging replica up from the
+        frontier it last reported (models/mencius.py step 9d), and a
+        replica reports it only on the accept traffic it sends: a
+        revived owner sends none until its takeover timer fires, tens of
+        stalled steps later, and then heals one sweep of recovery_rows
+        per firing. So a Mencius replica whose frontier is stuck below
+        slots it has seen reports the frontier itself, as an accept
+        reply that carries no vote (ok = 0), at most every _REPORT_S."""
+        if self.protocol != "mencius":
+            return
+        now = time.monotonic()
+        fr = snap["frontier"]
+        if fr != self._report_fr:
+            self._report_fr, self._report_since = fr, now
+            return
+        if (snap["crt_inst"] - 1 <= fr
+                or now - self._report_since < self._REPORT_S
+                or now - self._report_last < self._REPORT_S):
+            return
+        self._report_last = now
+        frame = make_batch(MsgKind.ACCEPT_REPLY, id=self.me, ok=0,
+                           inst=fr + 1, count=1, ballot=0,
+                           last_committed=fr)
+        for q in range(self.cfg.n_replicas):
+            if q != self.me:
+                self._send_or_redial(q, MsgKind.ACCEPT_REPLY, frame)
 
     # minimum seconds between snapshot re-pushes to one peer
     _SNAP_RESEND_S = 2.0

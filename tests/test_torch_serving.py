@@ -33,7 +33,7 @@ class Harness:
     """A port master + N port replica servers on fresh localhost ports."""
 
     def __init__(self, tmp_path, n=3, durable=False, classic=False,
-                 mencius=False):
+                 mencius=False, cfg_overrides=None):
         self.protocol = ("mencius" if mencius
                          else "classic" if classic else "minpaxos")
         self.tmp_path = tmp_path
@@ -49,7 +49,7 @@ class Harness:
                         {"m": "register", "addr": host, "port": port})
             assert resp["ok"] and resp["id"] == i, resp
         self.cfg = MinPaxosConfig(n_replicas=n, explicit_commit=classic,
-                                  **SMALL)
+                                  **{**SMALL, **(cfg_overrides or {})})
         self.durable = durable
         self.servers: dict[int, ReplicaServer] = {}
         for i in range(n):
@@ -60,12 +60,15 @@ class Harness:
 
     @staticmethod
     def wait(pred, timeout_s, what):
+        """Poll ``pred`` until it holds or ``timeout_s`` runs out; then
+        fail with ``what`` (a callable is called then, so its message
+        shows the state at the deadline)."""
         deadline = time.monotonic() + timeout_s
         while time.monotonic() < deadline:
             if pred():
                 return
             time.sleep(0.05)
-        raise AssertionError(what)
+        raise AssertionError(what() if callable(what) else what)
 
     def start_replica(self, i) -> None:
         flags = RuntimeFlags(durable=self.durable, store_dir=str(self.tmp_path),
@@ -78,12 +81,108 @@ class Harness:
         self.servers.pop(i).stop()
 
     def stop(self) -> None:
+        """Stop every server (their stores closed) and the master; a
+        second call is a no-op for the servers."""
         for s in self.servers.values():
             s.stop()
+        self.servers.clear()
         self.master.stop()
 
     def client(self, check=True) -> Client:
         return Client(("127.0.0.1", self.mport), check=check)
+
+    def control(self, i, req: dict) -> dict:
+        """One JSON request to replica i's control port."""
+        import json
+        import socket
+
+        host, port = self.addrs[i]
+        with socket.create_connection((host, port + CONTROL_OFFSET), timeout=5) as s:
+            f = s.makefile("rw")
+            f.write(json.dumps(req) + "\n")
+            f.flush()
+            return json.loads(f.readline())
+
+
+class Workload:
+    """One cmd_id space across a scenario's phases: each phase's
+    ``gen_workload`` draws are appended to one table and driven under
+    their global ids, so every command in the stores and every reply
+    the client holds can be checked against the one table."""
+
+    def __init__(self):
+        self.ops = self.keys = self.vals = np.zeros(0, np.int64)
+
+    def add(self, n, **kw) -> np.ndarray:
+        """Append ``gen_workload(n, **kw)``; returns the new cmd_ids."""
+        ops, keys, vals = gen_workload(n, **kw)
+        lo = len(self.ops)
+        self.ops = np.concatenate([self.ops, ops])
+        self.keys = np.concatenate([self.keys, keys])
+        self.vals = np.concatenate([self.vals, vals])
+        return np.arange(lo, lo + n)
+
+    def run(self, cli, ids, timeout_s) -> dict:
+        """Drive ``ids`` through one client (its retry driver); acked
+        counts these ids, duplicates the client's whole life."""
+        return cli.run_partition(ids, self.ops, self.keys, self.vals,
+                                 timeout_s=timeout_s)
+
+    @property
+    def table(self):
+        return self.ops, self.keys, self.vals
+
+
+def settle_and_hold(h, store_dir, wl, *clients):
+    """End of a scenario: close the clients (a MultiClient's too), wait
+    until every live replica has committed every slot any of them has
+    seen (the stores' committed prefixes then cover every acked command:
+    Mencius executes and acks a committed slot above a gap), stop the
+    cluster and hold its stores, with every reply, to both packages'
+    invariants."""
+    replies = {}
+    for c in clients:
+        for sub in getattr(c, "clients", [c]):
+            sub.close_conn()
+            replies.update(sub.replies)
+
+    def frontiers():
+        return {i: s.snapshot["frontier"] for i, s in h.servers.items()}
+
+    def tip():
+        return max(s.snapshot.get("crt_inst", 0) for s in h.servers.values()) - 1
+
+    h.wait(lambda: min(frontiers().values()) >= tip(), 30,
+           lambda: f"cluster never settled: frontiers {frontiers()}, tip {tip()}")
+    h.stop()
+    hold_to_reference(store_dir, len(h.addrs), replies, wl.table)
+
+
+def hold_to_reference(store_dir, n, replies=None, workload=None):
+    """The port's and the JAX package's ``check_cluster`` over the
+    port's stable stores (one format, each read by its own package's
+    ``StableStore``), with the client's replies and the workload table
+    where given: both must pass, over the same slots."""
+    from minpaxos_tpu.runtime.stable import StableStore as RefStore
+    from minpaxos_tpu.verify import invariants as ref_inv
+
+    from minpaxos_tpu_torch.verify import invariants as port_inv
+
+    reports = []
+    for store_cls, inv in ((StableStore, port_inv), (RefStore, ref_inv)):
+        stores = {i: store_cls(f"{store_dir}/stable-store-replica{i}", sync=False)
+                  for i in range(n)}
+        try:
+            reports.append(inv.check_cluster(stores, replies=replies,
+                                             workload=workload))
+        finally:
+            for s in stores.values():
+                s.close()
+    port, ref = reports
+    assert port.ok, port.violations
+    assert ref.ok, ref.violations
+    assert (port.frontiers, port.compared_slots, port.replayed_slots) == (
+        ref.frontiers, ref.compared_slots, ref.replayed_slots)
 
 
 @pytest.fixture
@@ -196,18 +295,10 @@ def test_jax_package_client_drives_port_cluster(harness):
 def test_control_verbs(harness):
     """ping, stats and be_the_leader on a port replica's control port;
     other verbs answer an error."""
-    import json
-    import socket
-
     h = harness()
 
     def rpc(req):
-        host, port = h.addrs[1]
-        with socket.create_connection((host, port + CONTROL_OFFSET), timeout=5) as s:
-            f = s.makefile("rw")
-            f.write(json.dumps(req) + "\n")
-            f.flush()
-            return json.loads(f.readline())
+        return h.control(1, req)
 
     ping = rpc({"m": "ping"})
     assert ping["ok"] and ping["leader"] == 0 and ping["fatal"] is None
