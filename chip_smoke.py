@@ -12,6 +12,9 @@ Phases, each printing one JSON line:
               Mencius, then one TCP replica server: B = 1, 2^18-way KV
               table, K7 on the leader's outputs of a live exchange, one
               Mencius TCP server (tcp_mencius, below), then
+              one server of the chaos campaign's cluster (chaos: B = 1,
+              S = 1,024, inbox 1,024, E = 512, 2^12 ways, K7 on the
+              leader's outputs of a live exchange at that config), then
               the model checker's step: S=8, a one-row inbox, exec 4,
               2^3 KV ways, R=3, MinPaxos and Mencius forms, at its
               chunk of 8,192 rows and at a small odd B), on
@@ -170,6 +173,25 @@ Phases, each printing one JSON line:
               those kernels to their twins at that server's shape (B = 1,
               S = 2,048, inbox 1,024, E = 128, 2^18 ways, stride 3; K7 on
               the outputs of a live three-owner exchange).
+10. chaos   — seeded fault campaigns (minpaxos_tpu_torch/chaos, the
+              port of the JAX package's paxchaos) against a master and
+              three in-process MinPaxos replica servers stepping on this
+              card at the campaign's config (W = 1,024, inbox 1,024, exec
+              512, 2^12 ways, 64 catch-up and recovery rows): the smoke's
+              pairs (partition_heal seed 1009, loss_reorder seed 2003),
+              isolated_leader seed 42, and the broken-quorum
+              counterexample's fault plan (tests/fixtures/
+              mc_broken_quorum_minpaxos.json through verify/mc.py
+              counterexample_faultplan) replayed. Each run: checked load
+              through the schedule's faults (blocked, dropped, delayed,
+              duplicated, reordered peer frames), the live health
+              watcher's stall verdict, the heal, resumed commits,
+              convergence, and check_cluster over the quiesced stores;
+              one chaos_run line each (ok, acked/expected, faults, the
+              stall verdict, check, the journals' event kinds, wall).
+              The phase line carries every kernel's launches over the
+              runs; any run not ok, a kernel of KERNELS["chaos"] never
+              launched, or the phase over CHAOS_LIMIT_S fails it.
 
 With --profile DIR, 4 steady rounds of each resident path after its run
 are traced with torch.profiler into DIR (profile lines: device ms and
@@ -235,6 +257,17 @@ TCP_M_OPS, TCP_M_EXTRA, TCP_M_FAIL = 10000, 2000, 1000
 TCP_M_LIMIT_S = 480.0
 WARM = 300  # each TCP leg's warm-up PUTs (cmd_ids 0..299)
 MC_LIMIT_S = 180.0  # the mc phase's own time limit
+# the chaos phase: the campaign cluster (chaos/campaign.py
+# campaign_config: 3 replicas, W=1024, inbox 1024, exec 512, 2^12 KV
+# ways, 64 catch-up and 64 recovery rows; three in-process servers on
+# this card), the smoke's (seed, schedule) pairs, the reference
+# partition-the-leader run, and the broken-quorum counterexample's
+# fault plan replayed; its own limit
+CH_N, CH_W, CH_INBOX, CH_E, CH_KV_POW2, CH_CU, CH_REC = 3, 1024, 1024, 512, 12, 64, 64
+CHAOS_PAIRS = [(1009, "partition_heal"), (2003, "loss_reorder"), (42, "isolated_leader")]
+CHAOS_OPS = 250  # the smoke's load size (cli/chaos.py SMOKE_OPS)
+CHAOS_REPLAY = ("mc_broken_quorum_minpaxos.json", 1009)
+CHAOS_LIMIT_S = 120.0
 # the mc phase: the kernels each protocol's step launches at the model
 # checker's shapes (S=8, a one-row inbox, exec 4, 2^3 KV ways)
 MC_KERNELS = {
@@ -296,6 +329,11 @@ PATHS = {
     "tcp_mencius": Shapes("tcp_mencius", 1, TCP_N, TCP_W, TCP_INBOX, TCP_E, TCP_KV_POW2,
                           TCP_INBOX + 1 + 3 * TCP_CU + 3 * TCP_REC, TCP_INBOX, TCP_N,
                           batch=1, protocol="mencius", routed=False),
+    # one replica server of the chaos campaign's cluster (the chaos
+    # phase; its outbox by the tcp entry's formula)
+    "chaos": Shapes("chaos", 1, CH_N, CH_W, CH_INBOX, CH_E, CH_KV_POW2,
+                    CH_INBOX + CH_REC + 1 + 2 * CH_CU, CH_INBOX, 1, batch=1,
+                    routed=False),
     # the model checker's step (the mc phase): one-row inboxes, its
     # largest chunk and a small odd batch, each protocol's forms
     "mc": Shapes("mc", 1, MC_R, MC_S, 1, MC_E, MC_KV_POW2, 1, 1, 1,
@@ -327,6 +365,10 @@ KERNELS = {
     "tcp_mencius": ("scatter_max", "kv_segments", "advance_frontier", "kv_lookup",
                     "kv_insert", "ack_runs", "vote_bits", "scatter_vote_bits",
                     "exec_select", "gather_rows", "pack_outputs"),
+    # the chaos campaign's in-process MinPaxos servers: the tcp set
+    "chaos": ("scatter_max", "kv_segments", "advance_frontier", "kv_lookup",
+              "kv_insert", "ack_runs", "vote_bits", "scatter_vote_bits",
+              "pack_outputs", "slot_write"),
 }
 # K5's compare families (ops/ackruns.py ack_families); the first is the
 # headline row of the kernels line
@@ -1681,24 +1723,15 @@ def _mencius_exchange(dev, cfg, seed: int, steps: int, per_step: int):
         yield st, ob, ex
 
 
-def compare_pack_mencius(dev, seed: int) -> dict:
-    """K7's Mencius form against its plain twin at one Mencius replica
-    server's shapes: the outputs of the owner that executed most in a
-    live exchange at TCP_SHAPE (three owners, a third of a client batch
-    each a step), held over repeated launches, timed beside the plain
-    twin and torch.cat of the pre-cast columns."""
+def pack_row(dev, st, ob, ex, e: int, r: int, what: str = "") -> dict:
+    """K7 against its plain twin on one replica server's outputs (state,
+    outbox, exec result of a live exchange), held over repeated
+    launches, timed beside the plain twin and torch.cat of the pre-cast
+    columns."""
     from minpaxos_tpu_torch.ops import substeps
 
-    best = None
-    for st, ob, ex in _mencius_exchange(dev, tcp_cfg(), seed, 8, TCP_BATCH // TCP_N):
-        for r in range(TCP_N):
-            if best is None or int(ex.count[r]) >= int(best[2].count[0]):
-                best = (_row_of(st, r), _row_of(ob, r), _row_of(ex, r))
-    st, ob, ex = best
     m_out = ob.msgs.kind.shape[1]
-    assert m_out == PATHS["tcp_mencius"].m_out, (m_out, PATHS["tcp_mencius"].m_out)
-    out = torch.empty((1, substeps.row_width(m_out, TCP_E, TCP_N)),
-                      dtype=torch.int32, device=dev)
+    out = torch.empty((1, substeps.row_width(m_out, e, r)), dtype=torch.int32, device=dev)
     pk = lambda: substeps.pack_outputs(st, ob, ex, out)  # noqa: E731
     pp = lambda: substeps._pack_plain(st, ob, ex, torch.empty_like(out), st.window_base)  # noqa: E731
     m_in = ob.acked.shape[1]
@@ -1714,8 +1747,39 @@ def compare_pack_mencius(dev, seed: int) -> dict:
     return dict(err=err, **times(pk, pp, lambda: torch.cat(pre, 1)),
                 bytes=pack_bytes(st, ob, ex), ops=w + 64,
                 executed_in_row=int(ex.count[0]),
-                shapes=f"Mencius outbox [1,{m_out}] x 14, exec [1,{TCP_E}] x 6, "
+                shapes=f"{what}outbox [1,{m_out}] x 14, exec [1,{e}] x 6, "
                        f"scalars -> packed row [1,{w}]")
+
+
+def compare_pack_mencius(dev, seed: int) -> dict:
+    """K7's Mencius form (``pack_row``) at one Mencius replica server's
+    shapes: the outputs of the owner that executed most in a live
+    exchange at TCP_SHAPE (three owners, a third of a client batch each
+    a step)."""
+    best = None
+    for st, ob, ex in _mencius_exchange(dev, tcp_cfg(), seed, 8, TCP_BATCH // TCP_N):
+        for r in range(TCP_N):
+            if best is None or int(ex.count[r]) >= int(best[2].count[0]):
+                best = (_row_of(st, r), _row_of(ob, r), _row_of(ex, r))
+    m_out = best[1].msgs.kind.shape[1]
+    assert m_out == PATHS["tcp_mencius"].m_out, (m_out, PATHS["tcp_mencius"].m_out)
+    return pack_row(dev, *best, TCP_E, TCP_N, "Mencius ")
+
+
+def compare_pack_chaos(dev, seed: int) -> dict:
+    """K7 (``pack_row``) at one chaos campaign server's shapes
+    (``chaos/campaign.py campaign_config``): the leader's outputs of a
+    live three-replica exchange at that config, the client's batches of
+    64 PUTs a step."""
+    from minpaxos_tpu_torch.chaos.campaign import campaign_config
+
+    best = None
+    for _prev, _inbox, st, ob, ex in _exchange(dev, campaign_config(CH_N), seed, 6, 64):
+        if best is None or int(ex.count[0]) >= int(best[2].count[0]):
+            best = (_row_of(st, 0), _row_of(ob, 0), _row_of(ex, 0))
+    m_out = best[1].msgs.kind.shape[1]
+    assert m_out == PATHS["chaos"].m_out, (m_out, PATHS["chaos"].m_out)
+    return pack_row(dev, *best, CH_E, CH_N)
 
 
 def compare_tcp(dev, seed: int) -> tuple[dict, dict]:
@@ -2932,7 +2996,8 @@ def tcp_mencius_path(seed: int) -> dict:
     finally:
         cl.close()
     rec.update(servers={k: {f: v.get(f) for f in (
-        "dispatches", "fused_substeps", "executed", "wall_ms_per_dispatch",
+        "dispatches", "fused_substeps", "executed", "skips_deferred",
+        "wall_ms_per_dispatch",
         "device_span_ms_per_dispatch", "max_memory_allocated", "launches", "fatal")}
         if v else None for k, v in stops.items()},
         phase_s=time.monotonic() - cl.t0)
@@ -2952,6 +3017,70 @@ def tcp_mencius_path(seed: int) -> dict:
     bad += stop_faults(stops, "tcp_mencius")
     if bad:
         fail("tcp_mencius", "; ".join(bad))
+    return rec
+
+
+def chaos_phase(dev, smi: str) -> dict:
+    """Seeded fault campaigns on this card (``chaos/campaign.py``): for
+    each of CHAOS_PAIRS and the broken-quorum counterexample's fault
+    plan (``verify/mc.py counterexample_faultplan``, projected before
+    the counts are set to 0), a master and three in-process replica
+    servers stepping here through the kernels, checked load through the
+    schedule, heal, and the invariant checker over the quiesced stores.
+    One ``chaos_run`` line per run; the phase line carries the launches
+    of every kernel over the runs. Any run not ok, a kernel of
+    KERNELS["chaos"] never launched, or the phase over its limit fails
+    the script."""
+    from minpaxos_tpu_torch import kernels as K
+    from minpaxos_tpu_torch.chaos.campaign import run_campaign, run_schedule
+    from minpaxos_tpu_torch.verify.mc import counterexample_faultplan
+
+    def log(msg):
+        print(msg, file=sys.stderr, flush=True)
+
+    fixture, replay_seed = CHAOS_REPLAY
+    with open(os.path.join(HERE, "tests", "fixtures", fixture)) as f:
+        plan = counterexample_faultplan(json.load(f), device=dev)
+    events = [tuple(e) for e in plan["events"]]
+    t0 = time.monotonic()
+    K.reset_launches()
+    verdict = run_campaign([n for _, n in CHAOS_PAIRS], [s for s, _ in CHAOS_PAIRS],
+                           ops_n=CHAOS_OPS, pairs=CHAOS_PAIRS, log=log, device=str(dev))
+    runs = list(verdict["runs"])
+    runs.append(run_schedule("mc_replay", replay_seed, ops_n=CHAOS_OPS, events=events,
+                             log=log, device=str(dev)))
+    wall = time.monotonic() - t0
+    launches = K.launch_counts()
+    for r in runs:
+        stall = (r.get("watch") or {}).get("stall")
+        emit(dict(phase="chaos_run", schedule=r.get("schedule"), seed=r.get("seed"),
+                  ok=r.get("ok"), acked=r.get("acked"), expected=r.get("expected"),
+                  faults_injected=r.get("faults_injected"),
+                  stall_observed=r.get("stall_observed"),
+                  stall=None if stall is None else {
+                      k: stall[k] for k in ("fired_in_window", "attributed", "cleared",
+                                            "n_alarms")},
+                  alarms=(r.get("watch") or {}).get("alarm_counts"),
+                  duplicates=r.get("duplicates"), resumed=r.get("resumed_commits"),
+                  converged=r.get("converged"), check_ok=(r.get("check") or {}).get("ok"),
+                  violations=(r.get("check") or {}).get("violations"),
+                  cluster_events=r.get("cluster_events"), wall_s=r.get("wall_s"),
+                  error=r.get("error")))
+    bad = [f"{r.get('schedule')} seed {r.get('seed')} not ok: {r.get('error')}"
+           for r in runs if not r.get("ok")]
+    missing = [k for k in KERNELS["chaos"] if not launches.get(k)]
+    if missing:
+        bad.append(f"kernels never launched: {missing}")
+    if wall > CHAOS_LIMIT_S:
+        bad.append(f"the phase took {wall:.1f} s, over its {CHAOS_LIMIT_S:.0f} s limit")
+    rec = dict(phase="chaos", card=smi, device=torch.cuda.get_device_name(0),
+               wall_s=wall, limit_s=CHAOS_LIMIT_S, runs=len(runs),
+               runs_ok=sum(bool(r.get("ok")) for r in runs),
+               replay_blocked=sorted(plan["plan"]["links"]),
+               launches=launches, mismatches=bad)
+    emit(rec)
+    if bad:
+        fail("chaos", "; ".join(bad[:20]))
     return rec
 
 
@@ -3093,6 +3222,8 @@ def main() -> None:
             probe = extra.pop("_dispatch_probe")
         elif path == "tcp_mencius":
             res[path]["pack_outputs"] = compare_pack_mencius(dev, args.seed)
+        elif path == "chaos":
+            res[path]["pack_outputs"] = compare_pack_chaos(dev, args.seed)
         emit(dict(phase="compare", path=path, card=smi,
                   kv_apply_max_abs_err=apply_err[path],
                   **(extra if path == "tcp" else {}),
@@ -3144,6 +3275,7 @@ def main() -> None:
     del probe
     recs["tcp"] = tcp_path(args.seed, busy)
     recs["tcp_mencius"] = tcp_mencius_path(args.seed)
+    recs["chaos"] = chaos_phase(dev, smi)
 
     # one row per (kernel, path): a kernel's first path's row under the
     # kernel's name, its later paths' as name@path; TCP launches are

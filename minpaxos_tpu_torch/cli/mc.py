@@ -5,6 +5,7 @@
     python -m minpaxos_tpu_torch.cli.mc --protocol mencius --depth 6
     python -m minpaxos_tpu_torch.cli.mc --mutant broken-quorum
     python -m minpaxos_tpu_torch.cli.mc --replay tests/fixtures/mc_broken_quorum_minpaxos.json
+    python -m minpaxos_tpu_torch.cli.mc --emit-faultplan tests/fixtures/mc_broken_quorum_minpaxos.json > plan.json
     python -m minpaxos_tpu_torch.cli.mc --refine --liveness
     python -m minpaxos_tpu_torch.cli.mc --flex-certified
     python -m minpaxos_tpu_torch.cli.mc --certify 5,4,2
@@ -484,6 +485,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--replay", default=None, metavar="CE_JSON",
                    help="replay a counterexample; exit 0 iff the "
                         "violation reproduces")
+    p.add_argument("--emit-faultplan", default=None, metavar="CE_JSON",
+                   help="project a counterexample onto a chaos FaultPlan "
+                        "schedule (stdout; cli/chaos.py --plan-file runs "
+                        "it on a live cluster)")
     p.add_argument("--json", default="",
                    help="write the full verdict to this file (never "
                         "MC.json or MC_FLEX.json)")
@@ -508,6 +513,7 @@ def main(argv=None) -> int:
     from minpaxos_tpu_torch.verify.mc import (
         PROTOCOLS,
         Explorer,
+        counterexample_faultplan,
         replay_counterexample,
     )
 
@@ -524,6 +530,12 @@ def main(argv=None) -> int:
     def write(verdict):
         if args.json:
             Path(args.json).write_text(json.dumps(verdict, indent=1))
+
+    if args.emit_faultplan:
+        ce = json.loads(Path(args.emit_faultplan).read_text())
+        print(json.dumps(counterexample_faultplan(ce, device=legs.device),
+                         indent=1))
+        return 0
 
     if args.replay:
         ce = json.loads(Path(args.replay).read_text())

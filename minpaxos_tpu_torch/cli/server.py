@@ -198,7 +198,7 @@ def main(argv=None) -> None:
         "joined": joined, "fatal": server.fatal,
         "launches": server.serving_launches(), "warm_launches": server.warm_launches,
         "dispatches": st["dispatches"], "fused_substeps": st["fused_substeps"],
-        "executed": st["executed"],
+        "executed": st["executed"], "skips_deferred": st["skips_deferred"],
         "wall_ms_per_dispatch": st["dispatch_wall_us"] / 1e3 / n,
         "device_span_ms_per_dispatch": (st["device_step_us"] / 1e3 / n
                                    if cuda else None),

@@ -415,7 +415,10 @@ def _displace(kv: KVState, pos, fail, claimed, matched):
 # tables whose claim arrays exceed a block's shared memory (C > 2^17),
 # [rows, ints a row] for the most rows a launch has asked for; a launch
 # of B rows takes the first B (so callers whose B varies, like the model
-# checker's batches, keep one entry)
+# checker's batches, keep one entry). Callers of one process share an
+# entry: the replica servers of one process, each on its own thread.
+# That is safe because an insert is one launch and they all launch on
+# the device's default stream, so their inserts run one after another.
 _SCRATCH: dict[tuple, torch.Tensor | None] = {}
 
 

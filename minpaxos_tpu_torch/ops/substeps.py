@@ -276,6 +276,10 @@ class _Launcher:
         _, ptrs, lay_at, ptrs_at = self.entry(srcs, out)
         if self.fn is None:
             self.fn = K.fn("substeps", "mp_pack_outputs", [K.P, K.P, K.P, K.P])
+        # threads share the cached pointer array (every replica server
+        # of a process): it is filled and launched under the lock, and
+        # the launch copies the layout and the pointers into the
+        # kernel's parameters, so nothing of them outlives the call
         with self.lock:
             ptrs[:] = [None if t is None else t.data_ptr() for t in srcs]
             rc = self.fn(lay_at, ptrs_at, out.data_ptr(), K.stream(out))

@@ -237,6 +237,37 @@ class ColumnBuffer:
         return out, n
 
 
+def skip_rows_that_fit(buf: ColumnBuffer, rows: np.ndarray,
+                       stride: int) -> int:
+    """How many leading rows of a SKIP frame can join this inbox.
+
+    The Mencius step merges one step's SKIP rows per owner into one
+    range (min start, max end; models/mencius.py step 4). Two ranges of
+    one owner with a slot it proposed into between them would merge
+    into a range that no-ops that slot's accepted command. So a row
+    joins only while each owner's rows in the inbox cover one run of
+    its slots (every ``stride``-th slot); the rest wait for a later
+    step."""
+    n = buf.fill
+    c = buf.cols
+    sk = c["kind"][:n] == int(MsgKind.SKIP)
+    span: dict[int, tuple[int, int]] = {}
+    for q in np.unique(c["src"][:n][sk]).tolist():
+        m = sk & (c["src"][:n] == q)
+        span[q] = (int(c["last_committed"][:n][m].min()),
+                   int(c["inst"][:n][m].max()))
+    for j in range(len(rows)):
+        q = int(rows["leader_id"][j])
+        s, e = int(rows["start_inst"][j]), int(rows["end_inst"][j])
+        if q in span:
+            lo, hi = span[q]
+            if s > hi + stride or e < lo - stride:
+                return j
+            s, e = min(s, lo), max(e, hi)
+        span[q] = (s, e)
+    return len(rows)
+
+
 def frame_to_rows(buf: ColumnBuffer, kind: MsgKind, rows: np.ndarray,
                   conn_id: int) -> None:
     """Append one decoded frame's rows into the inbox column buffer.

@@ -1,11 +1,11 @@
 """Benchmark client library: leader discovery, batched proposes,
 failover retry, exactly-once checking.
 
-The port's copy of the JAX package's ``runtime/client.py`` (``Client``,
-``MultiClient``, ``gen_workload`` with its legacy knobs; per-command
-tracing, the event journal, workload profiles and the soak swarm are
-not carried over). It speaks the same wire protocol, so it drives a
-cluster of either package's servers.
+The port's copy of the JAX package's ``runtime/client.py`` (``Client``
+with its event journal of failovers, ``MultiClient``, ``gen_workload``
+with its legacy knobs; per-command tracing, workload profiles and the
+soak swarm are not carried over). It speaks the same wire protocol, so
+it drives a cluster of either package's servers.
 
 Counterpart of the reference's client family:
 ``client`` (closed-loop rounds, conflict-% / Zipfian keys, -check),
@@ -33,6 +33,7 @@ import time
 import numpy as np
 
 from minpaxos_tpu_torch.obs.metrics import MetricsRegistry
+from minpaxos_tpu_torch.obs.watch import EV_CLIENT_FAILOVER, EventJournal
 from minpaxos_tpu_torch.runtime.master import (
     backoff_sleeps,
     get_leader,
@@ -104,6 +105,9 @@ class Client:
         self._c_backoff_sleeps = self.metrics.counter(
             "backoff_sleeps", "failover rounds that found NO reachable "
             "replica and slept a jittered exponential backoff")
+        # failovers as journal events (which replica the client landed
+        # on, -1 for none), mergeable with the cluster's journals
+        self.journal = EventJournal(capacity=256)
         # failover backoff (seeded): when no replica answers, sleeps
         # grow 50 ms -> 2 s with U[0.5, 1.0] jitter — a fleet of
         # clients redialing a dead cluster must decorrelate, not arrive
@@ -380,11 +384,15 @@ class Client:
                 self.connect(rid)
                 self.leader = rid
                 self._backoff = None  # reachable again: reset the streak
+                self.journal.record(EV_CLIENT_FAILOVER, subject=rid,
+                                    value=self._c_failovers.value)
                 dlog(f"client: failed over to replica {rid}")
                 return
             except OSError:
                 continue
         # nothing reachable: jittered exponential backoff (see __init__)
+        self.journal.record(EV_CLIENT_FAILOVER, subject=-1,
+                            value=self._c_failovers.value)
         if self._backoff is None:
             self._backoff = backoff_sleeps(0.05, 2.0, self._backoff_rng)
         self._c_backoff_sleeps.inc()

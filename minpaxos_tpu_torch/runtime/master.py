@@ -1,8 +1,8 @@
 """Cluster master: registration, liveness pings, leader election.
 
-The port's copy of the JAX package's ``runtime/master.py`` (its
-``stats`` fan-out kept; the chaos, phase, trace and event fan-outs are
-not carried over).
+The port's copy of the JAX package's ``runtime/master.py``, with its
+``stats``, ``chaos`` and ``events`` fan-outs (the ``phase``, ``trace``
+and ``tracespans`` fan-outs are not carried over).
 
 Counterpart of reference src/master/master.go: collect N registrations
 (master.go:114-152), declare an initial leader (:79), ping every
@@ -121,7 +121,7 @@ class Master:
 
     def _handle(self, req: dict) -> dict:
         m = req.get("m")
-        if m == "stats":
+        if m in ("stats", "chaos", "events"):
             # the fan-out polls every replica's control socket, so it
             # must NOT run under the membership lock — one slow
             # replica's 2 s control timeout would stall the ping loop
@@ -158,19 +158,26 @@ class Master:
                         "addr": host, "port": port}
             return {"ok": False, "error": f"unknown method {m}"}
 
-    # -- cluster-wide STATS fan-out --
+    # -- cluster-wide STATS / CHAOS / EVENTS fan-out --
 
     def _observe(self, m: str, req: dict) -> dict:
-        """Forward the replica-level ``stats`` verb to every registered
-        replica and merge the answers. A dead replica contributes an
-        error stanza, never a fan-out failure. Membership is copied
-        under the lock; the per-replica RPCs run outside it (they block
-        up to their timeout), one poller thread per replica."""
+        """Forward the replica-level ``stats``, ``chaos`` or ``events``
+        verb to every registered replica and merge the answers: a chaos
+        campaign flips a cluster-wide fault plan this way (every replica
+        installs the same plan and enforces its own slice). A dead
+        replica contributes an error stanza, never a fan-out failure.
+        Membership is copied under the lock; the per-replica RPCs run
+        outside it (they block up to their timeout), one poller thread
+        per replica."""
         with self._lock:
             nodes = list(enumerate(self.nodes))
             leader = self.leader
             alive = list(self.alive)
-        sub = {"m": m}
+        if m == "chaos":
+            sub = {"m": "chaos", "op": req.get("op", "status"),
+                   "plan": req.get("plan")}
+        else:
+            sub = {"m": m}
         timeout = 2.0
         slots: list[dict | None] = [None] * len(nodes)
 
@@ -194,8 +201,16 @@ class Master:
                     {"ok": False, "id": nodes[i][0],
                      "error": "control rpc timed out"}
                     for i, r in enumerate(slots)]
-        return {"ok": True, "leader": leader, "alive": alive,
-                "n": self.n, "replicas": replicas}
+        out = {"ok": True, "leader": leader, "alive": alive,
+               "n": self.n, "replicas": replicas}
+        if m == "chaos" and sub["op"] in ("install", "clear"):
+            # a partial install or clear (half the cluster faulted, and
+            # the campaign thinks it healed) is ok only if every one of
+            # the n replicas acknowledged; a read-only status keeps the
+            # dead-replica-tolerant contract above
+            out["ok"] = (len(replicas) == self.n
+                         and all(bool(r.get("ok")) for r in replicas))
+        return out
 
     # -- liveness + election (master.go:81-111) --
 
@@ -352,6 +367,24 @@ def cluster_stats(maddr: tuple[str, int], timeout_s: float = 15.0) -> dict:
     """One-shot cluster metrics snapshot via the master's ``stats``
     fan-out."""
     return _rpc(maddr, {"m": "stats"}, timeout=timeout_s)
+
+
+def cluster_chaos(maddr: tuple[str, int], op: str = "status",
+                  plan: dict | None = None,
+                  timeout_s: float = 15.0) -> dict:
+    """Install / clear / query a fault plan (``FaultPlan.to_dict()``) on
+    every replica of a live cluster through the master. ``ok`` is True
+    only when every replica acknowledged an install or a clear."""
+    return _rpc(maddr, {"m": "chaos", "op": op, "plan": plan},
+                timeout=timeout_s)
+
+
+def cluster_events(maddr: tuple[str, int],
+                   timeout_s: float = 15.0) -> dict:
+    """Every replica's event-journal collection, each with its (mono,
+    wall) clock anchor; ``obs.watch.align_event_collections`` merges
+    them into one cluster timeline."""
+    return _rpc(maddr, {"m": "events"}, timeout=timeout_s)
 
 
 def get_leader(maddr: tuple[str, int], timeout_s: float = 60.0) -> int:

@@ -25,10 +25,14 @@ is waited on, so they overlap the device work (the depth-2 pipeline).
 Two pinned buffers alternate, so the deferred dispatch's host arrays
 are never overwritten by the copy in flight.
 
-Not carried over from the JAX package's server: the flight recorder,
-per-command tracing, the event journal, the burn-rate admission arm,
-fault injection (``chaos`` verb) and the ``trace``/``events``/
-``tracespans``/``phase`` control verbs.
+The event journal (``obs/watch.py``) records the JAX package's server
+events at its sites (recovery, store corruption, snapshot and truncate,
+election, leader change, narrow fallback, fail-stop, fault-plan install
+and clear) and is served by the ``events`` control verb; the ``chaos``
+verb installs, clears and reports a fault plan (``chaos/shim.py``) on
+the live transport. Not carried over from the JAX package's server: the
+flight recorder, per-command tracing, the burn-rate admission arm and
+the ``trace``/``tracespans``/``phase`` control verbs.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import numpy as np
 import torch
 
 from minpaxos_tpu_torch import kernels as K
+from minpaxos_tpu_torch.chaos import ChaosShim, FaultPlan
 from minpaxos_tpu_torch.device import resolve_device
 from minpaxos_tpu_torch.models.minpaxos import (
     ACCEPTED,
@@ -57,6 +62,19 @@ from minpaxos_tpu_torch.models.minpaxos import (
     replica_step_impl,
 )
 from minpaxos_tpu_torch.obs.metrics import TICK_MS_BUCKETS, MetricsRegistry
+from minpaxos_tpu_torch.obs.watch import (
+    EV_CHAOS_CLEAR,
+    EV_CHAOS_INSTALL,
+    EV_ELECTION,
+    EV_FATAL,
+    EV_LEADER_CHANGE,
+    EV_NARROW_FALLBACK,
+    EV_RECOVERY,
+    EV_SNAPSHOT,
+    EV_STORE_CORRUPT,
+    EV_TRUNCATE,
+    EventJournal,
+)
 from minpaxos_tpu_torch.ops.kvstore import LIVE, kv_insert_unique
 from minpaxos_tpu_torch.ops.packed import join_i64, split_i64
 from minpaxos_tpu_torch.ops.substeps import (
@@ -247,6 +265,10 @@ class ReplicaServer:
             "fused_dispatches", "dispatches that fused k>1 substeps")
         self._c_narrow_steps = m.counter(
             "narrow_steps", "dispatches through the small-window view")
+        self._c_skips_deferred = m.counter(
+            "skips_deferred", "Mencius SKIP rows held for a later inbox: "
+            "their cede range would have merged with an earlier one of "
+            "the same owner across slots it did not cede")
         self._c_idle_skips = m.counter(
             "idle_skips", "timer wakeups the idle fast path answered "
             "without touching the device")
@@ -302,6 +324,12 @@ class ReplicaServer:
             metrics=self.metrics) if self.flags.coalesce else None)
         self.transport = Transport(me, addrs, inbox_queue=self.coalescer,
                                    metrics=self.metrics)
+        # the event journal: one per replica, shared with the transport's
+        # reader threads (each writer thread records into its own ring)
+        self.journal = EventJournal(capacity=1024)
+        m.fn_gauge("events", self.journal.events_total)
+        m.fn_gauge("events_dropped", self.journal.events_dropped)
+        self.transport.journal = self.journal
         self.queue = self.transport.queue
         self.state = init_fn(self.cfg, [me], device=self.dev)
         self._empty_inbox = MsgBatch.empty(1, self.cfg.inbox, self.dev)
@@ -360,7 +388,8 @@ class ReplicaServer:
         # last report's time
         self._report_fr = -2
         self._report_since = self._report_last = 0.0
-        # READ rows that found the inbox full, drained first next tick
+        # READ rows that found the inbox full, or Mencius SKIP rows that
+        # would merge with an earlier cede range: drained first next tick
         self._carry: list = []
 
     @property
@@ -450,6 +479,11 @@ class ReplicaServer:
                 pass
         if self._proto_thread is not None:
             self._proto_thread.join(timeout=10.0)
+        if self.dev.type == "cuda":
+            # every launch of the dead protocol thread completes before
+            # its tensors can go back to the allocator and to a
+            # restarted server (both launch on this stream)
+            torch.cuda.current_stream(self.dev).synchronize()
 
     def _snap_age_s(self) -> int:
         w = self.store.snap_wall_ns
@@ -495,6 +529,7 @@ class ReplicaServer:
         the accepted tail as ACCEPT rows; a truncated store first
         installs its newest snapshot's KV pairs and replays only the
         suffix above it."""
+        t_rec0 = time.perf_counter()
         frontier = self.store.committed_prefix()
         max_ballot = self.store.max_ballot()
         chunk = self.cfg.exec_batch
@@ -533,6 +568,13 @@ class ReplicaServer:
                        ballot=max_ballot,
                        last_committed=int(self.state.committed_upto[0].item()))
             self._device_tick(buf)
+        if self.store.corrupt_records:
+            self.journal.record(EV_STORE_CORRUPT, subject=self.me,
+                                value=self.store.corrupt_records)
+        # value = the recovered frontier, aux = recovery wall ms
+        self.journal.record(
+            EV_RECOVERY, subject=self.me, value=frontier,
+            aux=int((time.perf_counter() - t_rec0) * 1e3))
         dlog(f"replica {self.me}: recovered frontier={frontier} "
              f"base={self.store.base} tail={len(tail)} "
              f"ballot={max_ballot}")
@@ -664,6 +706,16 @@ class ReplicaServer:
                                         dict(zip(SCAL_NAMES,
                                                  scals.tolist()))),
                             "fatal": self.fatal}
+                elif m == "events":
+                    # the journal's retained events with the (mono,
+                    # wall) clock anchor align_event_collections uses
+                    resp = {"ok": True, "id": self.me,
+                            "journal": self.journal.collect()}
+                elif m == "chaos":
+                    # install / clear / status a fault plan on the live
+                    # transport: an attribute swap the reader threads
+                    # observe per frame
+                    resp = self._chaos_verb(req)
                 elif m == "be_the_leader":
                     self.queue.put((CONTROL, 0, "be_the_leader", None))
                     resp = {"ok": True}
@@ -678,6 +730,32 @@ class ReplicaServer:
                 conn.close()
             except OSError:
                 pass
+
+    def _chaos_verb(self, req: dict) -> dict:
+        op = req.get("op", "status")
+        try:
+            if op == "install":
+                plan = FaultPlan.from_dict(req["plan"])
+                if plan.n != self.cfg.n_replicas:
+                    raise ValueError(
+                        f"plan sized for {plan.n} replicas, cluster "
+                        f"has {self.cfg.n_replicas}")
+                self.transport.set_chaos(
+                    ChaosShim(self.me, plan, self.queue))
+                # value = the plan's seed
+                self.journal.record(EV_CHAOS_INSTALL, subject=self.me,
+                                    value=int(plan.seed))
+            elif op == "clear":
+                self.transport.set_chaos(None)
+                self.journal.record(EV_CHAOS_CLEAR, subject=self.me)
+            elif op != "status":
+                raise ValueError(f"unknown chaos op {op!r}")
+        except (KeyError, TypeError, ValueError) as e:
+            return {"ok": False, "id": self.me, "error": repr(e)[:200]}
+        ch = self.transport.chaos
+        return {"ok": True, "id": self.me, "installed": ch is not None,
+                "faults": ch.counts() if ch is not None else {},
+                "faults_total": self.transport.chaos_faults_total()}
 
     # ---------------- beacons ----------------
 
@@ -871,6 +949,13 @@ class ReplicaServer:
             self._snap_disabled = True
             return
         lb = self.store.log_bytes()
+        # EV_SNAPSHOT: value = checkpointed frontier, aux = log bytes
+        # after; EV_TRUNCATE only when the file shrank: value = freed
+        self.journal.record(EV_SNAPSHOT, subject=self.me,
+                            value=exec_upto, aux=lb)
+        if freed > 0:
+            self.journal.record(EV_TRUNCATE, subject=self.me,
+                                value=freed, aux=lb)
         self._snap_goal_bytes = lb + max(self.flags.snap_every_bytes, 1)
         self._snap_last_s = time.monotonic()
         dlog(f"replica {self.me}: snapshot@{exec_upto} "
@@ -987,6 +1072,19 @@ class ReplicaServer:
                       and self.protocol == "mencius"
                       and not rows["ok"].all()):
                     self._store_answer_report(rows[rows["ok"] == 0])
+                elif kind == MsgKind.SKIP:
+                    # a cede range that would merge with an earlier one
+                    # of its owner across a proposed slot ends this
+                    # inbox: it and the frames behind it go to the next
+                    fit = batches.skip_rows_that_fit(
+                        self.inbox, rows, self.cfg.n_replicas)
+                    if fit < len(rows):
+                        self._c_skips_deferred.inc(len(rows) - fit)
+                        self._carry.append((src_kind, conn_id, kind,
+                                            rows[fit:]))
+                        batches.frame_to_rows(self.inbox, kind, rows[:fit],
+                                              conn_id)
+                        break
                 batches.frame_to_rows(self.inbox, kind, rows, conn_id)
             if self.inbox.room() <= 0:
                 break
@@ -1083,6 +1181,8 @@ class ReplicaServer:
                     self._send_or_redial(q, kind, frame)
         self.transport.flush_all()
         self._c_elections.inc()
+        self.journal.record(EV_ELECTION, subject=self.me,
+                            value=self.snapshot["frontier"])
         dlog(f"replica {self.me}: running election")
 
     # kinds whose rows address log slots (narrow-view gating reads
@@ -1227,6 +1327,7 @@ class ReplicaServer:
                  f"{self.snapshot['frontier']} -> {frontier_last}")
         # published at readback — before the next tick's fuse/narrow/
         # idle decisions and before this tick's catch-up
+        prev_leader = self.snapshot["leader"]
         self.snapshot = {
             "frontier": frontier_last,
             "window_base": int(last[SCAL_WINDOW_BASE]),
@@ -1238,6 +1339,11 @@ class ReplicaServer:
             "high": int(last[SCAL_HIGH_ANCHOR]),
             "work_pending": bool(last[SCAL_WORK_PENDING]),
         }
+        if self.snapshot["leader"] != prev_leader:
+            # the published leader moved: an election landed
+            self.journal.record(EV_LEADER_CHANGE,
+                                subject=self.snapshot["leader"],
+                                value=frontier_last, aux=prev_leader)
         if narrow:
             # post-readback anchor validation: the choose-time proof
             # said every touched slot lies in [view_lo, view_lo+narrow);
@@ -1250,6 +1356,9 @@ class ReplicaServer:
                     > view_lo + narrow):
                 self._c_narrow_fallbacks.inc()
                 self._narrow_doubt = True
+                self.journal.record(
+                    EV_NARROW_FALLBACK, subject=self.me,
+                    value=self._c_narrow_fallbacks.value)
                 dlog(f"replica {self.me}: narrow anchor validation "
                      f"FAILED (view [{view_lo}, {view_lo + narrow})); "
                      f"next dispatch recounts full-width")
@@ -1267,6 +1376,7 @@ class ReplicaServer:
                 f"replica {self.me}: KV table saturated — {dropped} "
                 f"write(s) dropped (kv_pow2={self.cfg.kv_pow2} is too "
                 f"small for the live key space); failing stop")
+            self.journal.record(EV_FATAL, subject=self.me, value=dropped)
             raise FatalReplicaError(self.fatal)
         drain_s, self._drain_work_s = self._drain_work_s, 0.0
         rec = _InflightTick(
@@ -1623,6 +1733,7 @@ class ReplicaServer:
             del self._snap_rx[fr]
             if fr <= int(self.snapshot.get("executed", -1)):
                 continue  # stale by the time it completed
+            t0 = time.perf_counter()
             self._flush_inflight()
             pairs = (np.concatenate(st["rows"]) if st["rows"]
                      else empty_batch(MsgKind.SNAP_ROWS))
@@ -1637,6 +1748,9 @@ class ReplicaServer:
                 crt_inst=max(int(self.snapshot.get("crt_inst", 0)),
                              fr + 1),
                 work_pending=True)
+            self.journal.record(
+                EV_RECOVERY, subject=self.me, value=fr,
+                aux=int((time.perf_counter() - t0) * 1e3))
             dlog(f"replica {self.me}: installed snapshot@{fr} "
                  f"({len(pairs)} pairs) from replica {st['src']}")
         done = int(self.snapshot.get("executed", -1))

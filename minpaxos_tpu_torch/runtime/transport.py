@@ -1,7 +1,9 @@
 """TCP transport: peer mesh + client listener for a replica process.
 
-The port's copy of the JAX package's ``runtime/transport.py``, without
-its fault-injection, tracing and event-journal hooks.
+The port's copy of the JAX package's ``runtime/transport.py``, with its
+fault-injection hook (the ``chaos`` shim, ``chaos/shim.py``) and its
+event-journal records of peer links going up and down; its per-command
+tracing hook is not carried over.
 
 Counterpart of the reference's genericsmr connection plumbing
 (genericsmr.go:125-400): full TCP mesh where the lower-id replica dials
@@ -26,6 +28,7 @@ import time
 
 import numpy as np
 
+from minpaxos_tpu_torch.obs.watch import EV_PEER_DOWN, EV_PEER_UP
 from minpaxos_tpu_torch.utils.dlog import dlog
 from minpaxos_tpu_torch.wire.codec import FrameWriter, StreamDecoder
 from minpaxos_tpu_torch.wire.messages import MsgKind
@@ -70,6 +73,16 @@ class Transport:
         # delta-based rates negative. Guarded by _lock.
         self._closed_tallies = {"frames_in": 0, "rows_in": 0,
                                 "bytes_in": 0, "frames_out": 0}
+        # fault-injection shim (chaos/shim.py): consulted per peer frame
+        # in send_peer/_read_loop when installed. Without one a frame
+        # pays one attribute load and an is-None test. _chaos_retired
+        # carries the fault totals of replaced shims, so the fn-gauge
+        # stays monotonic across install/heal cycles.
+        self.chaos = None
+        self._chaos_retired = 0
+        # event journal (obs/watch.py): peer links going up and down,
+        # recorded when installed (one attribute load when absent)
+        self.journal = None
         # per-peer dial suppression state: a refused dial doubles the
         # peer's suppression window instead of re-timing out every
         # 0.5 s — a flapping or partitioned peer must not price a
@@ -98,6 +111,7 @@ class Transport:
             for k in ("ok", "refused", "suppressed"):
                 metrics.fn_gauge(f"dials_{k}",
                                  lambda k=k: self._dial_tallies[k])
+            metrics.fn_gauge("chaos_injected", self.chaos_faults_total)
         # Client connection ids are globally unique across replicas
         # (replica id in the high bits): command provenance travels
         # through the log as (client_id, cmd_id), and a follower
@@ -122,6 +136,40 @@ class Transport:
             total = self._closed_tallies[attr]
             conns = list(self.peers.values()) + list(self.clients.values())
         return total + sum(getattr(c, attr) for c in conns)
+
+    # -- fault injection (chaos/shim.py) --
+
+    def set_chaos(self, shim) -> None:
+        """Install (or, with None, heal) the fault-injection shim.
+        Called from the control thread; readers load the attribute once
+        per frame, so the swap is the whole synchronization of the data
+        path. The old shim stops first (it delivers the frames it held
+        and no tally advances past its stopped flag); its total is then
+        folded into the retired carry and the new shim swapped in under
+        the lock ``chaos_faults_total`` shares, so the gauge never steps
+        down."""
+        if shim is not None:
+            from minpaxos_tpu_torch.chaos import shim as _chaos_shim
+
+            assert _chaos_shim.FROM_PEER == FROM_PEER
+        old = self.chaos
+        if old is not None:
+            old.stop()  # outside the lock: stop delivers held frames
+        with self._lock:
+            if old is not None:
+                self._chaos_retired += old.faults_total()
+            self.chaos = shim
+
+    def chaos_faults_total(self) -> int:
+        ch = self.chaos
+        if ch is None:
+            # no lock without a shim: _chaos_retired changes only in
+            # set_chaos, before the swap to None is visible
+            return self._chaos_retired
+        with self._lock:
+            ch = self.chaos
+            total = self._chaos_retired
+        return total if ch is None else total + ch.faults_total()
 
     # -- lifecycle --
 
@@ -273,6 +321,9 @@ class Transport:
                 old.sock.close()
             except OSError:
                 pass
+        j = self.journal
+        if j is not None:
+            j.record(EV_PEER_UP, subject=q)
         dlog(f"replica {self.me}: peer {q} connected")
         threading.Thread(target=self._read_loop,
                          args=(FROM_PEER, q, conn), daemon=True).start()
@@ -295,10 +346,20 @@ class Transport:
             conn.frames_in += len(frames)
             for kind, rows in frames:
                 conn.rows_in += len(rows)
-                self.queue.put((src_kind, conn_id, kind, rows))
+                # the fault-injection gate, peer links only: without a
+                # shim one attribute load and an is-None test per frame
+                ch = self.chaos
+                if ch is not None and src_kind == FROM_PEER:
+                    ch.ingest(conn_id, kind, rows)
+                else:
+                    self.queue.put((src_kind, conn_id, kind, rows))
             if dec.error is not None:
                 break
         conn.alive = False
+        j = self.journal
+        if (j is not None and src_kind == FROM_PEER
+                and not self._stop.is_set()):
+            j.record(EV_PEER_DOWN, subject=conn_id)  # shutdown is no news
         self.queue.put((CONN_LOST, conn_id if src_kind == FROM_CLIENT
                         else -1 - conn_id, None, None))
         try:
@@ -312,6 +373,12 @@ class Transport:
         conn = self.peers.get(q)
         if conn is None or not conn.alive:
             return False
+        # the outbound gate: a blocked link swallows the frame and
+        # reports success, as TCP under an asymmetric partition does,
+        # so the caller does not redial a peer that is alive
+        ch = self.chaos
+        if ch is not None and not ch.allow_send(q):
+            return True
         try:
             conn.writer.write(kind, rows)
             conn.frames_out += 1

@@ -44,7 +44,8 @@ touches a stored node.
 **Counterexamples** are serializable action traces in the reference's
 ``paxmc-ce-v1`` format; ``replay_counterexample`` re-executes one and
 re-derives its violation, so the reference's committed fixtures replay
-through the port.
+through the port; ``counterexample_faultplan`` projects one onto a chaos
+schedule a live cluster runs (``cli/chaos.py --plan-file``).
 """
 
 from __future__ import annotations
@@ -922,3 +923,49 @@ def _explorer_for(ce: Counterexample, device="cuda") -> Explorer:
     return Explorer(ce.protocol, ce.bounds, ce.majority_override,
                     q1=ce.q1, q2=ce.q2, n_replicas=ce.n_replicas,
                     device=device)
+
+
+# ------------------------------------------------------- fault plans
+
+def counterexample_faultplan(ce: Counterexample | dict,
+                             duration_s: float = 1.5,
+                             device="cuda") -> dict:
+    """Project a counterexample onto a live-cluster chaos schedule.
+
+    The trace's dropped replica->replica frames, and the frames still
+    queued on a link at the violation (never delivered either), become
+    ``block``ed links of a :class:`~minpaxos_tpu_torch.chaos.plan.
+    FaultPlan`; returned as ``{"plan": <FaultPlan dict>, "events":
+    [...], "protocol": ...}`` in the campaign runner's event format,
+    runnable against a TCP cluster through ``cli/chaos.py --plan-file``.
+    A projection, not a bisimulation: a live cluster cannot be forced
+    through one interleaving, but the plan reproduces the trace's
+    communication pattern (who could never hear whom). The trace is
+    re-executed on ``device`` to find the queued links.
+    """
+    if isinstance(ce, dict):
+        ce = Counterexample.from_dict(ce)
+    from minpaxos_tpu_torch.chaos.plan import FaultPlan
+
+    ex = Explorer(ce.protocol, ce.bounds, ce.majority_override,
+                  q1=ce.q1, q2=ce.q2, n_replicas=ce.n_replicas,
+                  device=device)
+    node = ex.initial()
+    blocked: set[tuple[int, int]] = set()
+    for action in ce.trace:
+        if action["a"] == "drop":
+            src, dst = action["link"]
+            if src != CLIENT:
+                blocked.add((src, dst))
+        node = ex._apply(node, action)
+    _states, links, _budgets = node
+    for (src, dst), q in links.items():
+        if q and src != CLIENT:
+            blocked.add((src, dst))
+    plan = FaultPlan(ex.R, seed=0)
+    for src, dst in sorted(blocked):
+        plan.set_link(src, dst, block=True)
+    events = [(0.0, "install", plan.to_dict()),
+              (float(duration_s), "clear", None)]
+    return {"plan": plan.to_dict(), "events": events,
+            "protocol": ce.protocol}

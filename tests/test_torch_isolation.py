@@ -271,3 +271,13 @@ def test_verify_modules_are_walked():
     for name in ("verify", "verify.invariants", "verify.quorum", "verify.quorum_golden",
                  "verify.spec", "verify.mc", "verify.refine", "verify.liveness", "cli.mc"):
         assert f"minpaxos_tpu_torch.{name}" in walked, name
+
+
+def test_chaos_and_watch_modules_are_walked():
+    """The fault campaigns, the health watcher and their CLI are among
+    those imported with JAX blocked above (and so import nothing of the
+    JAX package, not even its numpy-only chaos and watch modules)."""
+    walked = set(_modules())
+    for name in ("chaos", "chaos.plan", "chaos.shim", "chaos.check", "chaos.campaign",
+                 "obs.watch", "cli.chaos"):
+        assert f"minpaxos_tpu_torch.{name}" in walked, name

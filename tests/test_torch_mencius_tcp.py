@@ -100,3 +100,78 @@ def test_mencius_owner_churn_exactly_once(harness, tmp_path):
             h.start_replica(victim)
         time.sleep(0.3)
     settle_and_hold(h, tmp_path, wl, cli)
+
+
+def test_cede_ranges_of_one_owner_never_merge_across_its_proposal(tmp_path):
+    """The Mencius step merges one step's SKIP rows of an owner into one
+    range (min start, max end), in the JAX package's step as in the
+    port's: two cede ranges with the owner's accepted PUT between them
+    no-op it when one inbox holds both. The server's drain ends an
+    inbox before such a SKIP row, so the PUT stays accepted."""
+    import functools
+
+    import jax
+
+    from minpaxos_tpu.models.mencius import init_mencius as jax_init
+    from minpaxos_tpu.models.mencius import mencius_step_impl as jax_step
+    from minpaxos_tpu.models.minpaxos import MinPaxosConfig as JaxCfg
+    from minpaxos_tpu.models.minpaxos import MsgBatch as JaxMsgBatch
+    from minpaxos_tpu_torch.models import mencius as tmc
+    from minpaxos_tpu_torch.models import minpaxos as tmp
+    from minpaxos_tpu_torch.runtime.replica import ReplicaServer, RuntimeFlags
+    from minpaxos_tpu_torch.wire.messages import MsgKind, Op, make_batch
+
+    shape = dict(n_replicas=3, window=64, inbox=16, exec_batch=8, kv_pow2=6,
+                 catchup_rows=4, recovery_rows=4, noop_delay=100)
+    srv = ReplicaServer(1, [("127.0.0.1", 1)] * 3, tmp.MinPaxosConfig(**shape),
+                        RuntimeFlags(device="cpu", store_dir=str(tmp_path)),
+                        protocol="mencius")
+    frames = [
+        (MsgKind.SKIP, make_batch(MsgKind.SKIP, leader_id=0, start_inst=0, end_inst=0)),
+        (MsgKind.ACCEPT, make_batch(MsgKind.ACCEPT, leader_id=0, inst=3, ballot=0,
+                                    last_committed=-1, op=int(Op.PUT), key=7, val=9,
+                                    cmd_id=5, client_id=1)),
+        (MsgKind.SKIP, make_batch(MsgKind.SKIP, leader_id=0, start_inst=6, end_inst=6)),
+    ]
+    # the three frames in one inbox: both steps no-op slot 3
+    whole = batches_of(srv, frames, split=False)
+    assert len(whole) == 1
+    jstep = jax.jit(functools.partial(jax_step, JaxCfg(**shape)))
+    for inboxes in (whole, batches_of(srv, frames)):
+        ts = tmc.init_mencius(tmp.MinPaxosConfig(**shape), [1], device="cpu")
+        js = jax_init(JaxCfg(**shape), 1)
+        for cols in inboxes:
+            ts = tmc.mencius_step_impl(srv.cfg, ts, tmp.MsgBatch(
+                **{c: torch.from_numpy(v[None]) for c, v in cols.items()}))[0]
+            js = jstep(js, JaxMsgBatch(**cols))[0]
+        got = [(int(ts.status[0, i]), int(ts.op[0, i])) for i in (0, 3, 6)]
+        assert got == [(int(js.status[i]), int(js.op[i])) for i in (0, 3, 6)]
+        if inboxes is whole:
+            assert got[1] == (tmp.COMMITTED, int(Op.NONE)), got
+    # the drain: the second cede range waits for the next inbox
+    assert len(inboxes) == 2, inboxes
+    assert srv.stats["skips_deferred"] == 1
+    assert got[1] == (tmp.ACCEPTED, int(Op.PUT)), got
+    assert all(st >= tmp.COMMITTED and op == int(Op.NONE)
+               for st, op in (got[0], got[2])), got
+
+
+def batches_of(srv, frames, split=True) -> list[dict]:
+    """The inboxes the server's drain builds from ``frames`` queued from
+    peer 0 (``split=False``: every row in one inbox, as a drain without
+    the cede-range gate built it)."""
+    from minpaxos_tpu_torch.runtime import batches
+    from minpaxos_tpu_torch.runtime.transport import FROM_PEER
+
+    if not split:
+        for kind, rows in frames:
+            batches.frame_to_rows(srv.inbox, kind, rows, 0)
+        cols, n = srv.inbox.drain()
+        return [cols]
+    for kind, rows in frames:
+        srv.queue.put((FROM_PEER, 0, kind, rows))
+    out = []
+    while srv._carry or srv.queue.qsize():
+        srv._drain(0.01)
+        out.append(srv.inbox.drain()[0])
+    return out

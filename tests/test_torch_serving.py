@@ -293,8 +293,8 @@ def test_jax_package_client_drives_port_cluster(harness):
 
 
 def test_control_verbs(harness):
-    """ping, stats and be_the_leader on a port replica's control port;
-    other verbs answer an error."""
+    """ping, stats, chaos (status), events and be_the_leader on a port
+    replica's control port; other verbs answer an error."""
     h = harness()
 
     def rpc(req):
@@ -304,7 +304,12 @@ def test_control_verbs(harness):
     assert ping["ok"] and ping["leader"] == 0 and ping["fatal"] is None
     st = rpc({"m": "stats"})
     assert st["ok"] and st["device"] == "cpu" and "dispatches" in st["metrics"]["counters"]
-    assert rpc({"m": "chaos"})["ok"] is False
+    ch = rpc({"m": "chaos"})
+    assert ch["ok"] and ch["installed"] is False and ch["faults_total"] == 0
+    assert rpc({"m": "chaos", "op": "no_such_op"})["ok"] is False
+    ev = rpc({"m": "events"})
+    assert ev["ok"] and ev["id"] == 1 and "anchor" in ev["journal"]
+    assert rpc({"m": "tracespans"})["ok"] is False
     assert rpc({"m": "be_the_leader"})["ok"]
     h.wait(lambda: h.servers[1].snapshot["leader"] == 1
            and h.servers[1].snapshot["prepared"], 20, "promotion never landed")
