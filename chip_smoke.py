@@ -159,7 +159,27 @@ Phases, each printing one JSON line:
               (the step and K7 on the leader's inbox from the compare
               phase's exchange) under torch.profiler in this process —
               device busy ms and kernel launches per dispatch.
-9. tcp_mencius — bench_tcp.py's mencius_tcp_3rep_durable: three
+9. trace   — paxtrace and the flight recorder on the tcp deployment:
+              the reference's two overhead guards (obs/guards.py) on
+              this host, each under 30 us; the tcp phase's run (recorder
+              and tracing at their defaults) against 20,000 PUTs on
+              servers started -notrace -norecorder (ops/s, p50/p99; no
+              gate); then servers started -tracepow2 0 and 2,000 checked
+              PUTs from a client tracing every command: the master's
+              tracespans fan-out with the client's spans joins into
+              chains, at least 90% of the commands complete and each
+              chain's stage sum is its end-to-end latency within 1e-6 ms;
+              the stage table (p50/p99 per stage, the tail's worst
+              stage), the leader's recorder phases per dispatch; python
+              -m minpaxos_tpu_torch.cli.tail --once --json and
+              -dump-trace, both exit 0; the dump merged with the
+              mainpath run's dispatch log, host rows and telemetry rows
+              (parallel/sharded.py ResidentTimeline) into one file that
+              validate_chrome_trace accepts, holding replica pids 0-2,
+              TRACE_PID, DEVICE_PID and WATCH_PID, written under
+              --profile DIR or a temporary directory; every server's
+              kernels launched, the stores held.
+10. tcp_mencius — bench_tcp.py's mencius_tcp_3rep_durable: three
               -m -durable servers at the tcp shape, the round-robin
               MultiClient with -check; 10,000 PUTs (ops/s, p50/p99), an
               owner SIGKILLed and 2,000 more PUTs through the takeover
@@ -173,7 +193,7 @@ Phases, each printing one JSON line:
               those kernels to their twins at that server's shape (B = 1,
               S = 2,048, inbox 1,024, E = 128, 2^18 ways, stride 3; K7 on
               the outputs of a live three-owner exchange).
-10. chaos   — seeded fault campaigns (minpaxos_tpu_torch/chaos, the
+11. chaos   — seeded fault campaigns (minpaxos_tpu_torch/chaos, the
               port of the JAX package's paxchaos) against a master and
               three in-process MinPaxos replica servers stepping on this
               card at the campaign's config (W = 1,024, inbox 1,024, exec
@@ -256,6 +276,15 @@ TCP_LIMIT_S = 420.0  # the phase's own time limit
 TCP_M_OPS, TCP_M_EXTRA, TCP_M_FAIL = 10000, 2000, 1000
 TCP_M_LIMIT_S = 480.0
 WARM = 300  # each TCP leg's warm-up PUTs (cmd_ids 0..299)
+# the trace phase: the tcp cluster's shape with every command traced
+# (-tracepow2 0), TRACE_OPS checked PUTs from a tracing client; a span
+# ring per writer thread holds TRACE_RING spans (the leader's protocol
+# thread writes five per command); at least TRACE_COMPLETE of the
+# commands must join into complete chains. Then the same shape with
+# -notrace -norecorder for TCP_OPS PUTs, against the tcp phase's run
+# at the defaults (no gate); its own limit
+TRACE_OPS, TRACE_RING, TRACE_COMPLETE = 2000, 16384, 0.9
+TRACE_LIMIT_S = 240.0
 MC_LIMIT_S = 180.0  # the mc phase's own time limit
 # the chaos phase: the campaign cluster (chaos/campaign.py
 # campaign_config: 3 replicas, W=1024, inbox 1024, exec 512, 2^12 KV
@@ -2081,7 +2110,7 @@ def k9_per_dispatch(launches: dict, n_dispatches: int) -> float:
 def main_path(dev, seed: int, dispatches: int, profile_dir: str | None = None) -> dict:
     from minpaxos_tpu_torch import kernels as K
     from minpaxos_tpu_torch.models.minpaxos import MinPaxosConfig
-    from minpaxos_tpu_torch.parallel.sharded import ShardedCluster
+    from minpaxos_tpu_torch.parallel.sharded import ResidentTimeline, ShardedCluster
 
     cfg = MinPaxosConfig(n_replicas=R, window=W, inbox=INBOX, exec_batch=P,
                          kv_pow2=KV_POW2, catchup_rows=CU_ROWS,
@@ -2090,6 +2119,9 @@ def main_path(dev, seed: int, dispatches: int, profile_dir: str | None = None) -
     K.reset_launches()
     sc = ShardedCluster(cfg, G, ext_rows=EXT, key_space=KEY_SPACE, seed=seed,
                         device=dev)
+    # the dispatch log and host recorder rows of the merged trace (the
+    # trace phase): two clock reads around each dispatch
+    timeline = ResidentTimeline(sc)
     sc.elect(0)
     committed0 = sc.committed()[0]
     # the telemetry ring armed as bench.py arms it: every round the run
@@ -2099,7 +2131,7 @@ def main_path(dev, seed: int, dispatches: int, profile_dir: str | None = None) -
     # dispatch 1 warms the allocator; the rate is taken over the rest
     marks = []
     for _ in range(dispatches):
-        committed, in_flight = sc.run_resident(K_ROUNDS, P)
+        committed, in_flight = timeline.run_resident(K_ROUNDS, P)
         marks.append((time.perf_counter(), committed))
     t_meas = marks[-1][0] - marks[0][0]
     measured_rounds = dispatches * K_ROUNDS
@@ -2107,7 +2139,7 @@ def main_path(dev, seed: int, dispatches: int, profile_dir: str | None = None) -
     committed_measured = marks[-1][1] - marks[0][1]
     drain_dispatches = 0
     while in_flight and drain_dispatches < MAX_DRAIN:
-        committed, in_flight = sc.run_resident(K_ROUNDS, 0)
+        committed, in_flight = timeline.run_resident(K_ROUNDS, 0)
         drain_dispatches += 1
     launches = K.launch_counts()
     tel = sc.resident_telemetry()
@@ -2170,7 +2202,10 @@ def main_path(dev, seed: int, dispatches: int, profile_dir: str | None = None) -
                         f"{path_case['err']}")
     if profile_dir:
         emit(profile_rounds(sc, 4, P, profile_dir, "minpaxos"))
-    return dict(rec, kv_lookup_path=path_case)
+    # the resident run's half of the trace phase's merged file (its host
+    # rows on pid TCP_N, beside the TCP servers' replica pids)
+    return dict(rec, kv_lookup_path=path_case, dispatch_log=len(timeline.log),
+                trace_events=timeline.events(tel, pid=TCP_N))
 
 
 def mencius_path(dev, seed: int, dispatches: int, profile_dir: str | None = None) -> dict:
@@ -2508,6 +2543,16 @@ class TcpCluster:
     def frontier(self, i: int) -> int:
         return int(self.ctl(i, {"m": "ping"})["frontier"])
 
+    def leader_ready(self) -> int | None:
+        """The master's leader + 1 once that replica itself says it leads
+        and is prepared (a wait_for predicate), else None."""
+        r = self.master_rpc({"m": "get_leader"})
+        if not r.get("ok"):
+            return None
+        ping = self.ctl(int(r["leader"]), {"m": "ping"})
+        ok = ping["leader"] == int(r["leader"]) and ping["prepared"]
+        return int(r["leader"]) + 1 if ok else None
+
     def stores(self) -> dict:
         """Every replica's stable store (close them), after the stops."""
         from minpaxos_tpu_torch.runtime.stable import StableStore
@@ -2752,44 +2797,20 @@ def tcp_path(seed: int, busy: dict) -> dict:
     serving counters are read through its control port just before the
     kill. ``busy``: the compare phase's profile of one server dispatch
     at this shape, carried into the line."""
-    from minpaxos_tpu_torch.runtime.client import Client
-
     cl = TcpCluster("tcp", ["-min"], TCP_LIMIT_S)
     rec: dict = dict(phase="tcp", deployment="BASELINE config 1: master + "
                      f"{TCP_N} MinPaxos replica servers -min -durable "
                      + " ".join(TCP_SHAPE), client_batch=TCP_BATCH)
     stops: dict[str, dict] = {}
     try:
-        cl.boot()
-
-        def leader_ready():
-            r = cl.master_rpc({"m": "get_leader"})
-            if not r.get("ok"):
-                return None
-            ping = cl.ctl(int(r["leader"]), {"m": "ping"})
-            ok = ping["leader"] == int(r["leader"]) and ping["prepared"]
-            return int(r["leader"]) + 1 if ok else None
-
-        cl.wait_for(leader_ready, "a prepared leader", 120)
-        # warm-up, as bench_tcp.py does: 300 checked PUTs on keys outside
-        # the measured range, until one run completes — the boot
-        # election (replica 0's own, or the master's promotion when it
-        # pinged before replica 0 was up) settles before the measurement
         wl = tcp_workload((TCP_OPS, 42), (TCP_EXTRA, 43), (TCP_FAIL, 44))
         o2, o3 = WARM + TCP_OPS, WARM + TCP_OPS + TCP_EXTRA
         n_all = o3 + TCP_FAIL
-        warm_runs, replies = warm_up(cl, lambda: Client(("127.0.0.1", cl.mport), check=True),
-                                     wl)
-        lead_id = cl.wait_for(leader_ready, "a prepared leader", 120) - 1
-        rec.update(boot_s=time.monotonic() - cl.t0, warmup_runs=warm_runs, leader=lead_id)
-        cli = timed(Client(("127.0.0.1", cl.mport), check=True))
-        t0 = time.perf_counter()
-        st1 = tcp_drive(cli, np.arange(WARM, o2), wl, cl.left())
-        wall = time.perf_counter() - t0
-        lat = latencies(cli, range(WARM, o2))
-        rec.update(acked=st1["acked"], duplicates=st1["duplicates"], wall_s=wall,
-                   ops_per_s=st1["acked"] / wall,
-                   p50_latency_ms=_pctl(lat, 50), p99_latency_ms=_pctl(lat, 99))
+        cli, replies, leg = tcp_serve(cl, wl, TCP_OPS)
+        lead_id = leg["leader"]
+        rec.update({k: leg[k] for k in ("boot_s", "warmup_runs", "leader", "acked",
+                                        "duplicates", "wall_s", "ops_per_s",
+                                        "p50_latency_ms", "p99_latency_ms")})
         # the follower leg: stop a follower (the highest id that does not
         # lead), commit more, revive it
         fid = max(i for i in range(TCP_N) if i != lead_id)
@@ -2806,7 +2827,7 @@ def tcp_path(seed: int, busy: dict) -> dict:
         # the leader leg: SIGKILL the leader under load
         lead_serving = serving_stats(cl, lead_id)
         st3 = kill_under_load(cl, cli, np.arange(o3, n_all), wl, lead_id, cl.left())
-        new_lead = cl.wait_for(leader_ready, "a prepared new leader", 60) - 1
+        new_lead = cl.wait_for(cl.leader_ready, "a prepared new leader", 60) - 1
         after = [t for t, who, _ in cli.served if who == new_lead and t > st3["t_kill"]]
         rec.update(leader_leg_acked=st3["acked"], leader_leg_duplicates=st3["duplicates"],
                    new_leader=new_lead,
@@ -2820,7 +2841,8 @@ def tcp_path(seed: int, busy: dict) -> dict:
                     f"the revived old leader to reach frontier {target}", 180)
         rec.update(new_leader_frontier_at_revive=target,
                    old_leader_catchup_s=time.monotonic() - t_rev,
-                   leader_after_revive=cl.wait_for(leader_ready, "a prepared leader", 60) - 1)
+                   leader_after_revive=cl.wait_for(cl.leader_ready, "a prepared leader",
+                                                   60) - 1)
         wl, rb = tcp_read_back(cl, cli, wl, WARM, n_all, last=True)
         rec.update(rb)
         cli.close_conn()
@@ -2896,6 +2918,228 @@ def stop_faults(stops: dict, path: str) -> list[str]:
         if missing:
             bad.append(f"{k}: kernels never launched while serving: {missing}")
     return bad
+
+
+def tcp_serve(cl: TcpCluster, wl, n_ops: int, trace_pow2: int | None = None):
+    """Boot ``cl``, warm it up as tcp_path does, then drive the ``n_ops``
+    commands after the warm-up's from one timed client (``trace_pow2``:
+    its paxtrace sampling). Returns the client, the warm-up's replies
+    and the leg's record (ops/s, client p50/p99, the leader)."""
+    from minpaxos_tpu_torch.runtime.client import Client
+
+    cl.boot()
+    cl.wait_for(cl.leader_ready, "a prepared leader", 120)
+    # warm-up, as bench_tcp.py does: 300 checked PUTs on keys outside the
+    # measured range, until one run completes — the boot election
+    # (replica 0's own, or the master's promotion when it pinged before
+    # replica 0 was up) settles before the measurement
+    warm_runs, replies = warm_up(cl, lambda: Client(("127.0.0.1", cl.mport), check=True),
+                                 wl)
+    lead = cl.wait_for(cl.leader_ready, "a prepared leader", 120) - 1
+    cli = timed(Client(("127.0.0.1", cl.mport), check=True, trace_pow2=trace_pow2))
+    t0 = time.perf_counter()
+    st = tcp_drive(cli, np.arange(WARM, WARM + n_ops), wl, cl.left())
+    wall = time.perf_counter() - t0
+    lat = latencies(cli, range(WARM, WARM + n_ops))
+    return cli, replies, dict(
+        flags=" ".join(cl.flags), boot_s=time.monotonic() - cl.t0, warmup_runs=warm_runs,
+        leader=lead, ops=n_ops, acked=st["acked"], duplicates=st["duplicates"], wall_s=wall,
+        ops_per_s=st["acked"] / wall, p50_latency_ms=_pctl(lat, 50),
+        p99_latency_ms=_pctl(lat, 99))
+
+
+def stop_all(cl: TcpCluster) -> dict:
+    """SIGTERM every server, then the master: their stop lines by name."""
+    stops = {cl.name[i]: cl.stop(i) for i in range(TCP_N)}
+    cl.stop_master()
+    return stops
+
+
+def recorder_phases(events: list, pid: int) -> dict:
+    """Mean microseconds a dispatch of replica ``pid`` spent in each
+    flight-recorder phase (its trace events), over its dispatch ticks."""
+    ticks = [e for e in events if e.get("cat") == "tick" and e["pid"] == pid
+             and e["args"]["kind"] != "idle_skip"]
+    out: dict = {"dispatches": len(ticks)}
+    for name in ("drain", "enqueue", "readback", "persist", "dispatch", "reply"):
+        tot = sum(e["dur"] for e in events
+                  if e.get("cat") == "phase" and e["pid"] == pid and e["name"] == name)
+        out[f"{name}_us"] = tot / max(len(ticks), 1)
+    out["overlap_us"] = sum(e["args"]["overlap_us"] for e in ticks) / max(len(ticks), 1)
+    return out
+
+
+def trace_phase(tcp_rec: dict, resident_events: list, profile_dir: str | None) -> dict:
+    """paxtrace and the flight recorder on the TCP deployment (tcp_path's
+    shape and servers, every command traced: -tracepow2 0), and the
+    merged Perfetto file of that cluster and the mainpath run.
+
+    First the reference's two overhead guards (obs/guards.py) on this
+    host, each under OVERHEAD_BOUND_S. Then the A/B without a gate: the
+    tcp phase's run (tracing and recorder at their defaults) against
+    TCP_OPS PUTs on a cluster started -notrace -norecorder. Then the
+    traced cluster: TRACE_OPS checked PUTs from a client tracing every
+    command; the master's tracespans fan-out and the client's
+    collection join into chains, at least TRACE_COMPLETE of the
+    commands complete (send -> decode -> drain -> commit -> exec ->
+    reply_ser -> reply_recv), each chain's stage sum its end-to-end
+    latency within 1e-6 ms; the stage table (p50/p99 per stage, the
+    tail's worst stage); the leader's recorder phases per dispatch;
+    ``python -m minpaxos_tpu_torch.cli.tail`` --once --json and
+    -dump-trace as subprocesses, both exit 0; the dump merged with the
+    mainpath run's events (its host rows, device rounds): valid, with
+    replica pids 0-2, TRACE_PID, DEVICE_PID and WATCH_PID. The file is
+    written under ``profile_dir`` or a temporary directory. Every
+    server's stop line must show every kernel of KERNELS["tcp"], and
+    the stores pass hold_stores."""
+    import tempfile
+
+    from minpaxos_tpu_torch.obs.guards import (
+        OVERHEAD_BOUND_S,
+        overhead_guard,
+        trace_overhead_guard,
+    )
+    from minpaxos_tpu_torch.obs.recorder import (
+        DEVICE_PID,
+        TRACE_PID,
+        WATCH_PID,
+        chrome_trace,
+        validate_chrome_trace,
+    )
+    from minpaxos_tpu_torch.obs.trace import analyze_collections
+    from minpaxos_tpu_torch.runtime.master import cluster_events, cluster_tracespans
+
+    t_phase = time.monotonic()
+    rec: dict = dict(phase="trace", card=nvidia_smi_line(),
+                     deployment=tcp_rec["deployment"], client_batch=TCP_BATCH)
+    bad = []
+    g_rec, g_trace = overhead_guard(), trace_overhead_guard()
+    rec.update(overhead_guard=g_rec, trace_overhead_guard=g_trace)
+    for name, g in (("recorder", g_rec), ("paxtrace", g_trace)):
+        if not g["ok"]:
+            bad.append(f"{name} overhead guard over {OVERHEAD_BOUND_S * 1e6:.0f} us: {g}")
+
+    # the A/B: this cluster without the recorder and tracing against
+    # the tcp phase's, same shape, same PUTs (gen_workload seed 42)
+    cl = TcpCluster("trace_off", ["-min", "-notrace", "-norecorder"], TRACE_LIMIT_S)
+    stops: dict[str, dict] = {}
+    try:
+        wl = tcp_workload((TCP_OPS, 42))
+        cli, _, off = tcp_serve(cl, wl, TCP_OPS)
+        cli.close_conn()
+        st = cl.ctl(off["leader"], {"m": "trace"})
+        off["trace_verb_events"] = len(st["events"])
+        stops.update({f"off_{k}": v for k, v in stop_all(cl).items()})
+    finally:
+        cl.close()
+    on = {k: tcp_rec[k] for k in ("acked", "wall_s", "ops_per_s", "p50_latency_ms",
+                                  "p99_latency_ms")}
+    rec["ab"] = dict(defaults_tcp_phase=dict(on, flags="-min (recorder on, -tracepow2 4)"),
+                     notrace_norecorder=off)
+    if off["acked"] != TCP_OPS or off["duplicates"]:
+        bad.append(f"-notrace -norecorder run: {off['acked']}/{TCP_OPS} acked, "
+                   f"{off['duplicates']} duplicates")
+    if off["trace_verb_events"]:
+        bad.append(f"-norecorder leader's trace verb answered {off['trace_verb_events']} "
+                   f"events")
+
+    out_dir = profile_dir or tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    os.makedirs(out_dir, exist_ok=True)
+    dump = os.path.join(out_dir, "tcp_cluster_trace.json")
+    merged_path = os.path.join(out_dir, "merged_trace.json")
+    cl = TcpCluster("trace", ["-min", "-tracepow2", "0", "-tracering", str(TRACE_RING)],
+                    TRACE_LIMIT_S)
+    try:
+        wl = tcp_workload((TRACE_OPS, 45))
+        cli, replies, leg = tcp_serve(cl, wl, TRACE_OPS, trace_pow2=0)
+        rec["traced"] = leg
+        if leg["acked"] != TRACE_OPS or leg["duplicates"]:
+            bad.append(f"traced run: {leg['acked']}/{TRACE_OPS} acked, "
+                       f"{leg['duplicates']} duplicates")
+        resp = cluster_tracespans(("127.0.0.1", cl.mport))
+        colls = [r["trace"] for r in resp["replicas"] if r.get("ok")]
+        table, decomp, _ = analyze_collections(colls + [cli.trace_collect()])
+        mine = [d for d in decomp if WARM <= d["cmd_id"] < WARM + TRACE_OPS]
+        off_sum = max((abs(sum(d["stages"].values()) - d["total_ms"]) for d in mine),
+                      default=None)
+        rec.update(collections=len(colls), spans=sum(c["total"] for c in colls),
+                   spans_dropped=sum(c["dropped"] for c in colls),
+                   complete_chains=len(mine), complete_share=len(mine) / TRACE_OPS,
+                   max_stage_sum_error_ms=off_sum,
+                   stage_table={name: {q: table["stages"][name][q] for q in ("p50", "p99")}
+                                for name in table["stages"]},
+                   total_ms={q: table["total_ms"][q] for q in ("p50", "p99")},
+                   tail=({k: table["tail"][k] for k in ("n", "worst_stage",
+                                                         "worst_stage_ms")}
+                         if "tail" in table else None),
+                   commit_dispatches_p50=_pctl([d["commit_dispatches"] for d in mine], 50))
+        if len(colls) != TCP_N:
+            bad.append(f"tracespans fan-out: {len(colls)} collections of {TCP_N}")
+        if len(mine) < TRACE_COMPLETE * TRACE_OPS:
+            bad.append(f"{len(mine)} complete chains of {TRACE_OPS} commands")
+        if off_sum is None or off_sum > 1e-6:
+            bad.append(f"a chain's stage sum is {off_sum} ms off its end-to-end latency")
+        lead_trace = cl.ctl(leg["leader"], {"m": "trace", "last": 4096}, timeout=10.0)
+        rec["leader_recorder_phases"] = recorder_phases(lead_trace["events"], leg["leader"])
+        journal_events = sum(r["journal"]["total"] for r in
+                             cluster_events(("127.0.0.1", cl.mport))["replicas"]
+                             if r.get("ok"))
+        tail_cmd = [sys.executable, "-m", "minpaxos_tpu_torch.cli.tail",
+                    "-mport", str(cl.mport)]
+        t_json = subprocess.run(tail_cmd + ["--once", "--json"], cwd=HERE, env=cl.env,
+                                capture_output=True, text=True, timeout=120)
+        t_dump = subprocess.run(tail_cmd + ["-dump-trace", dump], cwd=HERE, env=cl.env,
+                                capture_output=True, text=True, timeout=120)
+        rec.update(tail_json_rc=t_json.returncode, tail_dump_rc=t_dump.returncode,
+                   tail_n_traced=(json.loads(t_json.stdout)["stage_table"]["n_traced"]
+                                  if t_json.returncode == 0 else t_json.stderr[-300:]),
+                   tail_dump_line=(t_dump.stdout or t_dump.stderr).strip()[-300:])
+        if t_json.returncode or t_dump.returncode:
+            bad.append(f"cli/tail.py exit {t_json.returncode} (--json), "
+                       f"{t_dump.returncode} (-dump-trace)")
+        cli.close_conn()
+        replies.update(cli.replies)
+        stops.update(stop_all(cl))
+        rec.update(hold_stores(cl, WARM + TRACE_OPS, list(range(TCP_N)), replies, wl))
+    finally:
+        cl.close()
+    if not (rec["stores_agree"] and rec["stores_cover"] and rec["check_cluster_ok"]):
+        bad.append(f"stable stores: agree {rec['stores_agree']}, cover "
+                   f"{rec['stores_cover']}, check_cluster {rec['check_cluster_violations']}")
+    # the merge: the cluster's dump and the resident run's events
+    if os.path.exists(dump):
+        with open(dump) as f:
+            events = json.load(f)["traceEvents"]
+        merged = chrome_trace(events + resident_events)
+        errs = validate_chrome_trace(merged)
+        with open(merged_path, "w") as f:
+            json.dump(merged, f)
+        pids: dict[int, int] = {}
+        for e in merged["traceEvents"]:
+            pids[e["pid"]] = pids.get(e["pid"], 0) + 1
+        rec.update(merged_trace=merged_path, merged_events=len(merged["traceEvents"]),
+                   merged_events_by_pid={str(k): v for k, v in sorted(pids.items())},
+                   merged_schema_errors=errs[:5], journal_events=journal_events)
+        need = {0, 1, 2, TRACE_PID, DEVICE_PID} | ({WATCH_PID} if journal_events else set())
+        if errs:
+            bad.append(f"merged trace invalid: {errs[:3]}")
+        if not need <= set(pids):
+            bad.append(f"merged trace lacks pids {sorted(need - set(pids))}")
+    else:
+        bad.append("cli/tail.py -dump-trace wrote no file")
+    rec.update(launches=sum_launches({k: v for k, v in stops.items()
+                                      if not k.startswith("off_")}),
+               servers={k: {f: v.get(f) for f in (
+                   "dispatches", "wall_ms_per_dispatch", "device_span_ms_per_dispatch",
+                   "fatal")} if v else None for k, v in stops.items()},
+               phase_s=time.monotonic() - t_phase)
+    emit(rec)
+    print(f"chip_smoke: merged trace {merged_path} ({rec.get('merged_events')} events, "
+          f"by pid {rec.get('merged_events_by_pid')})", flush=True)
+    bad += stop_faults(stops, "tcp")
+    if bad:
+        fail("trace", "; ".join(bad))
+    return rec
 
 
 def tcp_mencius_path(seed: int) -> dict:
@@ -3274,6 +3518,8 @@ def main() -> None:
     emit(dict(phase="dispatch_profile", **busy))
     del probe
     recs["tcp"] = tcp_path(args.seed, busy)
+    recs["trace"] = trace_phase(recs["tcp"], recs["minpaxos"].pop("trace_events"),
+                                args.profile)
     recs["tcp_mencius"] = tcp_mencius_path(args.seed)
     recs["chaos"] = chaos_phase(dev, smi)
 

@@ -15,6 +15,14 @@ Entry points take ``device=`` and default to ``"cuda"``; without a card
 that default raises instead of falling back to the CPU.
 """
 
-from minpaxos_tpu_torch.device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name: str):
+    # lazy, so the package's numpy-only modules (``obs/``, the master's
+    # RPC helpers, ``cli/tail.py``) import without torch
+    if name == "resolve_device":
+        from minpaxos_tpu_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module 'minpaxos_tpu_torch' has no attribute {name!r}")

@@ -473,10 +473,19 @@ def run_schedule(name: str, seed: int, n: int = 3, ops_n: int = 400,
                     churn_window_s=5.0, churn_budget=4),
             interval_s=0.25)
         watcher.start()
-        t0 = time.monotonic()
-        t0_wall = time.time()
         loader = threading.Thread(target=load, daemon=True)
         loader.start()
+        # the schedule's clock starts once the load is live on every
+        # replica (each holds a committed slot), not when the loader
+        # thread starts: on a loaded host the first batch can take
+        # longer than a schedule's first offset to reach a follower, and
+        # a crash schedule's victim killed before it stored anything
+        # restarts as a fresh replica, with nothing to recover
+        live_by = time.monotonic() + timeout_s
+        while (min(cluster.frontiers().values()) < 0
+               and time.monotonic() < live_by and loader.is_alive()):
+            time.sleep(0.01)
+        t0 = time.monotonic()
         # (mono, wall, op) per fired chaos event: the ground-truth
         # fault timeline the stall-detector assertion compares against
         # (wall joins the watcher's samples, mono the frontier samples)

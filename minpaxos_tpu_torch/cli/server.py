@@ -94,6 +94,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-keyhint", type=int, default=0,
                    help="expected distinct keys in the workload (logged"
                         " against -kvpow2 capacity at startup)")
+    p.add_argument("-norecorder", action="store_true",
+                   help="disable the flight recorder (the per-tick ring"
+                        " the control socket's trace verb serves) — for"
+                        " overhead A/Bs; the metrics registry stays on")
+    p.add_argument("-notrace", action="store_true",
+                   help="disable paxtrace sampled per-command tracing"
+                        " (the span rings the control socket's"
+                        " tracespans verb serves) — for overhead A/Bs")
+    p.add_argument("-tracepow2", type=int, default=4,
+                   help="paxtrace sampling exponent: 1 command in 2^k"
+                        " is traced (0 = every command)")
+    p.add_argument("-tracering", type=int, default=4096,
+                   help="paxtrace span-ring capacity per writer thread"
+                        " (5 int64 fields per span)")
+    p.add_argument("-recring", type=int, default=4096,
+                   help="flight-recorder ring capacity in ticks (18"
+                        " int64 fields per row: 4096 = 576 KiB)")
     p.add_argument("-q1", type=int, default=0,
                    help="flexible phase-1 quorum size; 0 = majority")
     p.add_argument("-q2", type=int, default=0,
@@ -174,6 +191,11 @@ def main(argv=None) -> None:
                          overlap_exec=not args.nooverlapexec,
                          key_hint=args.keyhint,
                          warm_variants=True,
+                         recorder=not args.norecorder,
+                         recorder_ring=args.recring,
+                         trace=not args.notrace,
+                         trace_pow2=args.tracepow2,
+                         trace_ring=args.tracering,
                          snapshots=not args.nosnap,
                          snap_every_bytes=args.snap_every,
                          snap_interval_s=args.snap_interval,

@@ -1,9 +1,7 @@
 """paxwatch on the port: cluster health journal, retention, detectors.
 
 The port's copy of the JAX package's ``obs/watch.py`` (numpy and the
-standard library only). ``event_chrome_events``, which renders journal
-rows on the flight recorder's reserved Perfetto pid, waits for the
-port's flight recorder (``obs/trace.py``); everything else is here:
+standard library only):
 
 * **Event journal** — fixed-size per-thread numpy event rings (single
   writer each) owned by one :class:`EventJournal` per process. Every
@@ -24,6 +22,8 @@ port's flight recorder (``obs/trace.py``); everything else is here:
   alarm raise/clear events with the evidence window: a chaos
   campaign's injected stall is detected and attributed while it lasts
   (``chaos/campaign.py`` asserts exactly that).
+* **Merged traces** — :func:`event_chrome_events` renders journal rows
+  as instant events on the flight recorder's reserved ``WATCH_PID``.
 """
 
 from __future__ import annotations
@@ -269,6 +269,39 @@ def align_event_collections(collections: list[dict],
         return np.zeros((0, N_EVENT_FIELDS), np.int64)
     rows = np.concatenate(out)
     return rows[np.argsort(rows[:, EV_MONO], kind="stable")]
+
+
+def event_chrome_events(rows, pid: int | None = None,
+                        tid: int = 0) -> list[dict]:
+    """Chrome trace instant events for journal rows, on the reserved
+    WATCH_PID (schema v6): one ``i`` event per row, named by kind,
+    carrying severity/subject/value/aux/trace_id args — merged with
+    the flight-recorder / device-round / command-span tracks they
+    share a timeline with. ``tid`` should be the replica id so a
+    cluster merge keeps one event track per process."""
+    from minpaxos_tpu_torch.obs.recorder import WATCH_PID
+
+    if pid is None:
+        pid = WATCH_PID
+    events: list[dict] = []
+    for r in np.asarray(rows, np.int64).reshape(-1, N_EVENT_FIELDS):
+        kind = int(r[EV_KIND])
+        if kind <= 0 or r[EV_MONO] <= 0:
+            continue
+        name = (EVENT_NAMES[kind] if kind < len(EVENT_NAMES)
+                else f"event:{kind}")
+        if kind in (EV_ALARM, EV_ALARM_CLEAR):
+            name = f"{name}:{DETECTOR_NAMES.get(int(r[EV_AUX]), '?')}"
+        events.append({
+            "name": name, "cat": "paxwatch", "ph": "i",
+            "ts": int(r[EV_MONO]) / 1e3, "s": "g", "pid": pid,
+            "tid": tid,
+            "args": {"severity": SEV_NAMES[min(int(r[EV_SEV]), 2)],
+                     "subject": int(r[EV_SUBJECT]),
+                     "value": int(r[EV_VALUE]), "aux": int(r[EV_AUX]),
+                     "trace_id": int(r[EV_TRACE]),
+                     "wall_ns": int(r[EV_WALL])}})
+    return events
 
 
 # ---------------------------------------------------- health samples
@@ -611,7 +644,12 @@ class HealthWatcher:
     that wasn't firing is RAISED (journal EV_ALARM, severity alert,
     subject = the attributed replica, value = the evidence window in
     ms, aux = the detector id); a raised detector that stopped firing
-    is CLEARED (EV_ALARM_CLEAR). The full alarm dicts — raise/clear
+    is CLEARED (EV_ALARM_CLEAR). A detector that goes on firing at
+    another subject clears its alarm and raises a new one: an alarm
+    keeps the subject it was raised with (the JAX package's watcher
+    relabels it in place, so a healed isolated leader's alarm could end
+    naming a follower that caught up one batch late, its clear row
+    naming another replica than its raise row). The full alarm dicts — raise/clear
     wall times plus the evidence window — accumulate on ``alarms`` for
     artifacts. The in-memory series is bounded to the longest detector
     window (plus slack); disk retention is :class:`HealthSeries`'s
@@ -652,6 +690,19 @@ class HealthWatcher:
             self.series.append(sample)
         firing = {a["detector"]: a for a in self.slo.evaluate(self.samples)}
         now = sample["t"]
+        for det in list(self._active):
+            a = firing.get(det)
+            if a is None or a["subject"] != self._active[det]["subject"]:
+                # stopped firing, or firing at another subject: an alarm
+                # keeps the subject it was raised with (its raise and
+                # clear rows name one replica), and a moved attribution
+                # (a healed isolated leader whose followers catch up one
+                # batch apart) raises a new alarm below
+                rec = self._active.pop(det)
+                rec["t_cleared"] = now
+                self.journal.record(EV_ALARM_CLEAR,
+                                    subject=rec["subject"],
+                                    aux=DETECTOR_IDS[det])
         for det, a in firing.items():
             if det not in self._active:
                 rec = {"detector": det, "subject": a["subject"],
@@ -663,16 +714,8 @@ class HealthWatcher:
                     EV_ALARM, subject=a["subject"],
                     value=int(a["evidence"].get("window_s", 0) * 1e3),
                     aux=DETECTOR_IDS[det])
-            else:  # still firing: keep the evidence fresh
+            else:  # still firing at its subject: keep the evidence fresh
                 self._active[det]["evidence"] = a["evidence"]
-                self._active[det]["subject"] = a["subject"]
-        for det in list(self._active):
-            if det not in firing:
-                rec = self._active.pop(det)
-                rec["t_cleared"] = now
-                self.journal.record(EV_ALARM_CLEAR,
-                                    subject=rec["subject"],
-                                    aux=DETECTOR_IDS[det])
         return list(self._active.values())
 
     # -- background polling (the campaign / CLI watch loop) --

@@ -14,6 +14,10 @@ groups at once.
   copy per dispatch.
 * ``sharded_run`` is the host-in-the-loop form: k rounds that return
   the cursor replica's [k, G] (committed_upto, crt_inst) histories.
+* ``ResidentTimeline`` is the resident loop's merged Perfetto trace as
+  the JAX package's bench builds it: a dispatch log and a host
+  flight-recorder row around each ``run_resident``, the telemetry
+  ring's readback as device rounds, the journal as instant events.
 
 The loops update the ring, histogram and telemetry buffers in place
 (the JAX loop donates them).
@@ -38,7 +42,14 @@ from minpaxos_tpu_torch.models.minpaxos import (
     init_replica,
     replica_step_impl,
 )
-from minpaxos_tpu_torch.obs.recorder import N_TEL_FIELDS, telemetry_valid_rows
+from minpaxos_tpu_torch.obs.recorder import (
+    KIND_FUSED,
+    N_TEL_FIELDS,
+    FlightRecorder,
+    device_round_events,
+    telemetry_valid_rows,
+)
+from minpaxos_tpu_torch.obs.watch import event_chrome_events
 from minpaxos_tpu_torch.ops.resident import (
     write_totals,
     new_scratch,
@@ -48,6 +59,7 @@ from minpaxos_tpu_torch.ops.resident import (
 )
 from minpaxos_tpu_torch.ops.util import I32, argmin_first
 from minpaxos_tpu_torch.ops.workload import propose_batch
+from minpaxos_tpu_torch.utils.clock import monotonic_ns
 
 #: round-latency histogram bins: exact integer latencies 1..511, last
 #: bin = overflow
@@ -330,3 +342,51 @@ class ShardedCluster:
 
     def revive(self, replica: int) -> None:
         self.ss = set_alive(self.cfg, self.ss, replica, True)
+
+
+class ResidentTimeline:
+    """The resident loop's unified timeline (the JAX package's
+    ``bench.py --trace``): around each ``run_resident`` of ``sc`` a
+    dispatch log entry (``t0_ns``, ``t1_ns``: monotonic_ns around the
+    call, the clock the servers' flight recorders stamp; ``round0``,
+    ``k``: the rounds it ran) and one host flight-recorder row (the
+    dispatch's wall as its readback). Two clock reads a dispatch: the
+    resident path itself, and its one readback, are untouched.
+
+    ``events`` renders the host rows, the telemetry ring's readback as
+    device-round slices and counter tracks on ``DEVICE_PID`` (each
+    dispatch's rounds laid evenly over its wall), and journal rows as
+    instant events on ``WATCH_PID``: one timeline a resident dispatch
+    and the TCP runtime's recorders share."""
+
+    def __init__(self, sc: ShardedCluster, capacity: int = 4096):
+        self.sc = sc
+        self.n_shards = sc.n_shards
+        self.log: list[dict] = []
+        self.recorder = FlightRecorder(capacity)
+
+    def run_resident(self, k_rounds: int, n_proposals: int,
+                     substeps: int = 1) -> tuple[int, int]:
+        sc = self.sc
+        r0 = sc._seed
+        t0 = monotonic_ns()
+        committed, in_flight = sc.run_resident(k_rounds, n_proposals, substeps)
+        t1 = monotonic_ns()
+        self.log.append({"t0_ns": t0, "t1_ns": t1, "round0": r0, "k": k_rounds})
+        self.recorder.record(
+            t1, KIND_FUSED, k_rounds, rows_in=sc.n_shards * n_proposals * k_rounds,
+            rows_out=0, frontier=committed, backlog=in_flight, drain_us=0,
+            enqueue_us=0, readback_us=(t1 - t0) // 1000, overlap_us=0,
+            persist_us=0, dispatch_us=0, reply_us=0, t_rb_ns=t1)
+        return committed, in_flight
+
+    def events(self, tel_rows, journal_rows=None, pid: int = 0) -> list[dict]:
+        """Chrome trace events: the host rows on ``pid``, the telemetry
+        rows (``resident_telemetry()`` or a raw ring readback) as device
+        rounds, and the journal rows (``EventJournal.snapshot()``)."""
+        events = self.recorder.to_events(pid=pid)
+        if tel_rows is not None and len(tel_rows):
+            events += device_round_events(tel_rows, self.log, self.n_shards)
+        if journal_rows is not None and len(journal_rows):
+            events += event_chrome_events(journal_rows)
+        return events

@@ -2,10 +2,10 @@
 failover retry, exactly-once checking.
 
 The port's copy of the JAX package's ``runtime/client.py`` (``Client``
-with its event journal of failovers, ``MultiClient``, ``gen_workload``
-with its legacy knobs; per-command tracing, workload profiles and the
-soak swarm are not carried over). It speaks the same wire protocol, so
-it drives a cluster of either package's servers.
+with its event journal of failovers and its per-command tracing,
+``MultiClient``, ``gen_workload`` with its legacy knobs; workload
+profiles and the soak swarm are not carried over). It speaks the same
+wire protocol, so it drives a cluster of either package's servers.
 
 Counterpart of the reference's client family:
 ``client`` (closed-loop rounds, conflict-% / Zipfian keys, -check),
@@ -33,6 +33,13 @@ import time
 import numpy as np
 
 from minpaxos_tpu_torch.obs.metrics import MetricsRegistry
+from minpaxos_tpu_torch.obs.trace import (
+    ST_REPLY_RECV,
+    ST_SEND,
+    TraceSink,
+    monotonic_ns,
+    trace_id_for,
+)
 from minpaxos_tpu_torch.obs.watch import EV_CLIENT_FAILOVER, EventJournal
 from minpaxos_tpu_torch.runtime.master import (
     backoff_sleeps,
@@ -75,9 +82,17 @@ class Client:
     BOUNCE_PAUSE_S = 0.05
 
     def __init__(self, maddr: tuple[str, int], check: bool = False,
-                 backoff_seed: int | None = None):
+                 backoff_seed: int | None = None,
+                 trace_pow2: int | None = None):
+        """``trace_pow2``: paxtrace sampling exponent (None = tracing
+        off, the default: the wire then carries no TRACE_CTX frames; 0
+        = trace every command). Sampled proposes send a context frame
+        ahead of the PROPOSE and stamp SEND / REPLY_RECV spans into
+        this client's own rings (``trace_collect``)."""
         self.maddr = maddr
         self.check = check
+        self.trace = (None if trace_pow2 is None else
+                      TraceSink(enabled=True, sample_pow2=trace_pow2))
         self.nodes = get_replica_list(maddr)
         self.leader = get_leader(maddr)
         self.sock: socket.socket | None = None
@@ -202,6 +217,13 @@ class Client:
         # t_arrive: reader-thread arrival time (one stamp per frame —
         # the rows arrived together), for the open-loop latency probe
         t = time.monotonic()
+        tr = self.trace
+        if (tr is not None and len(rows) and kind == MsgKind.PROPOSE_REPLY
+                and not closed.is_set()):
+            # reply-receipt spans close sampled write chains (reads get
+            # no drain/commit spans); this reader thread's own ring
+            t_ns = monotonic_ns()
+            tr.stamp_batch(ST_REPLY_RECV, rows["cmd_id"], t_ns, t_ns)
         with self._got:
             if closed.is_set():
                 return  # the connection was abandoned (see connect)
@@ -238,6 +260,12 @@ class Client:
                         replies[cmd] = {"val": val, "t_arrive": t}
             self._got.notify_all()
 
+    def trace_collect(self) -> dict | None:
+        """This client's paxtrace span collection (None if tracing is
+        off), merged with the cluster's ``tracespans`` fan-out to close
+        chains client to client."""
+        return None if self.trace is None else self.trace.collect()
+
     # -- propose / wait --
 
     def propose(self, cmd_ids, ops, keys, vals) -> None:
@@ -247,8 +275,29 @@ class Client:
                            timestamp=time.monotonic_ns())
         with self._lock:
             self._outstanding.update(frame["cmd_id"].tolist())
+        tr = self.trace
+        ctx = None
+        t_s0 = 0
+        if tr is not None:
+            # a context frame for the sampled commands of this batch,
+            # ahead of the PROPOSE on the same stream (one flush covers
+            # both); tracing off sends nothing
+            m = tr.sampled(frame["cmd_id"])
+            if m.any():
+                ids = frame["cmd_id"][m]
+                t_s0 = monotonic_ns()
+                ctx = make_batch(MsgKind.TRACE_CTX, cmd_id=ids,
+                                 trace_id=trace_id_for(ids),
+                                 origin_wall_ns=time.time_ns())
+                self.writer.write(MsgKind.TRACE_CTX, ctx)
         self.writer.write(MsgKind.PROPOSE, frame)
         self.writer.flush()
+        if ctx is not None:
+            t_s1 = monotonic_ns()
+            ring = tr.ring()
+            for tid, cid in zip(ctx["trace_id"].tolist(),
+                                ctx["cmd_id"].tolist()):
+                ring.record(tid, ST_SEND, t_s0, t_s1, cid)
         self._c_proposed.inc(len(frame))
 
     def read(self, cmd_ids, keys) -> None:
@@ -424,7 +473,7 @@ class MultiClient:
 
     def __init__(self, maddr: tuple[str, int], check: bool = False,
                  mode: str = "rr", bar_one: bool = False,
-                 wait_less: bool = False):
+                 wait_less: bool = False, trace_pow2: int | None = None):
         """``bar_one``: send to all replicas except the LAST (reference
         clienttot -barOne, clienttot/client.go:31, :76-78 — the
         excluded replica still learns/executes via the protocol, it
@@ -440,9 +489,15 @@ class MultiClient:
         n_targets = len(self.nodes) - 1 if bar_one else len(self.nodes)
         assert n_targets >= 1, "-barOne needs at least 2 replicas"
         for rid in range(n_targets):
-            c = Client(maddr, check=check)
+            c = Client(maddr, check=check, trace_pow2=trace_pow2)
             c.connect(rid)
             self.clients.append(c)
+
+    def trace_collect(self) -> list[dict]:
+        """Per-connection paxtrace collections (rr partitions have
+        disjoint cmd_id spaces, so the merge is safe)."""
+        out = [c.trace_collect() for c in self.clients]
+        return [c for c in out if c is not None]
 
     def run_workload(self, ops, keys, vals, batch: int = 512,
                      timeout_s: float = 60.0) -> dict:

@@ -1,8 +1,8 @@
 """Cluster master: registration, liveness pings, leader election.
 
 The port's copy of the JAX package's ``runtime/master.py``, with its
-``stats``, ``chaos`` and ``events`` fan-outs (the ``phase``, ``trace``
-and ``tracespans`` fan-outs are not carried over).
+``stats``, ``chaos``, ``events``, ``trace`` and ``tracespans`` fan-outs
+(the ``phase`` fan-out is not carried over).
 
 Counterpart of reference src/master/master.go: collect N registrations
 (master.go:114-152), declare an initial leader (:79), ping every
@@ -28,6 +28,7 @@ import socket
 import threading
 import time
 
+from minpaxos_tpu_torch.obs.recorder import chrome_trace
 from minpaxos_tpu_torch.utils.dlog import dlog
 from minpaxos_tpu_torch.utils.netutil import CONTROL_OFFSET
 
@@ -121,7 +122,7 @@ class Master:
 
     def _handle(self, req: dict) -> dict:
         m = req.get("m")
-        if m in ("stats", "chaos", "events"):
+        if m in ("stats", "trace", "chaos", "tracespans", "events"):
             # the fan-out polls every replica's control socket, so it
             # must NOT run under the membership lock — one slow
             # replica's 2 s control timeout would stall the ping loop
@@ -158,13 +159,15 @@ class Master:
                         "addr": host, "port": port}
             return {"ok": False, "error": f"unknown method {m}"}
 
-    # -- cluster-wide STATS / CHAOS / EVENTS fan-out --
+    # -- cluster-wide STATS / TRACE / TRACESPANS / CHAOS / EVENTS fan-out --
 
     def _observe(self, m: str, req: dict) -> dict:
-        """Forward the replica-level ``stats``, ``chaos`` or ``events``
-        verb to every registered replica and merge the answers: a chaos
-        campaign flips a cluster-wide fault plan this way (every replica
-        installs the same plan and enforces its own slice). A dead
+        """Forward the replica-level ``stats``, ``trace``, ``tracespans``,
+        ``chaos`` or ``events`` verb to every registered replica and
+        merge the answers: a chaos campaign flips a cluster-wide fault
+        plan this way (every replica installs the same plan and enforces
+        its own slice), and the replicas' ``trace`` events become one
+        Chrome trace (each event carries pid = replica id). A dead
         replica contributes an error stanza, never a fan-out failure.
         Membership is copied under the lock; the per-replica RPCs run
         outside it (they block up to their timeout), one poller thread
@@ -176,9 +179,11 @@ class Master:
         if m == "chaos":
             sub = {"m": "chaos", "op": req.get("op", "status"),
                    "plan": req.get("plan")}
+        elif m == "trace":
+            sub = {"m": "trace", "last": req.get("last")}
         else:
             sub = {"m": m}
-        timeout = 2.0
+        timeout = 5.0 if m in ("trace", "tracespans") else 2.0
         slots: list[dict | None] = [None] * len(nodes)
 
         def poll(i, rid, host, port):
@@ -201,6 +206,10 @@ class Master:
                     {"ok": False, "id": nodes[i][0],
                      "error": "control rpc timed out"}
                     for i, r in enumerate(slots)]
+        events: list[dict] = []
+        if m == "trace":
+            for r in replicas:
+                events.extend(r.pop("events", []))
         out = {"ok": True, "leader": leader, "alive": alive,
                "n": self.n, "replicas": replicas}
         if m == "chaos" and sub["op"] in ("install", "clear"):
@@ -210,6 +219,10 @@ class Master:
             # dead-replica-tolerant contract above
             out["ok"] = (len(replicas) == self.n
                          and all(bool(r.get("ok")) for r in replicas))
+        if m == "trace":
+            # the replicas' monotonic timestamps share the host clock,
+            # so the merge is a concatenation
+            out["trace"] = chrome_trace(events)
         return out
 
     # -- liveness + election (master.go:81-111) --
@@ -385,6 +398,21 @@ def cluster_events(maddr: tuple[str, int],
     wall) clock anchor; ``obs.watch.align_event_collections`` merges
     them into one cluster timeline."""
     return _rpc(maddr, {"m": "events"}, timeout=timeout_s)
+
+
+def cluster_tracespans(maddr: tuple[str, int],
+                       timeout_s: float = 60.0) -> dict:
+    """Every replica's span-ring collection, each with its
+    monotonic<->wall clock anchor, in one RPC: what ``cli/tail.py``
+    turns into a per-stage latency decomposition (``obs/trace.py``)."""
+    return _rpc(maddr, {"m": "tracespans"}, timeout=timeout_s)
+
+
+def cluster_trace(maddr: tuple[str, int], last: int | None = None,
+                  timeout_s: float = 60.0) -> dict:
+    """Merged Chrome trace of every replica's flight recorder (newest
+    ``last`` ticks each) under ``["trace"]``; it loads in Perfetto."""
+    return _rpc(maddr, {"m": "trace", "last": last}, timeout=timeout_s)
 
 
 def get_leader(maddr: tuple[str, int], timeout_s: float = 60.0) -> int:

@@ -30,13 +30,21 @@ events at its sites (recovery, store corruption, snapshot and truncate,
 election, leader change, narrow fallback, fail-stop, fault-plan install
 and clear) and is served by the ``events`` control verb; the ``chaos``
 verb installs, clears and reports a fault plan (``chaos/shim.py``) on
-the live transport. Not carried over from the JAX package's server: the
-flight recorder, per-command tracing, the burn-rate admission arm and
-the ``trace``/``tracespans``/``phase`` control verbs.
+the live transport. The flight recorder (``obs/recorder.py``) writes
+one row per dispatch and per idle skip: regime, substeps, rows, the
+frontier and the wall of each phase (drain, enqueue, readback, persist,
+dispatch, reply); the ``trace`` verb serves it as Chrome trace events
+with the journal beside it. paxtrace (``obs/trace.py``) stamps sampled
+commands' stage spans (origin, drain, commit, exec, reply
+serialization; the transport's readers stamp decode), served by the
+``tracespans`` verb. Both are host work around the dispatch: neither
+adds a device sync. Not carried over from the JAX package's server:
+the burn-rate admission arm and the ``phase`` control verb.
 """
 
 from __future__ import annotations
 
+import heapq
 import json
 import queue
 import socket
@@ -62,6 +70,22 @@ from minpaxos_tpu_torch.models.minpaxos import (
     replica_step_impl,
 )
 from minpaxos_tpu_torch.obs.metrics import TICK_MS_BUCKETS, MetricsRegistry
+from minpaxos_tpu_torch.obs.recorder import (
+    KIND_FULL,
+    KIND_FUSED,
+    KIND_IDLE_SKIP,
+    KIND_NARROW,
+    FlightRecorder,
+)
+from minpaxos_tpu_torch.obs.trace import (
+    ST_COMMIT,
+    ST_DRAIN,
+    ST_EXEC,
+    ST_ORIGIN,
+    ST_REPLY_SER,
+    TraceSink,
+    trace_id_for,
+)
 from minpaxos_tpu_torch.obs.watch import (
     EV_CHAOS_CLEAR,
     EV_CHAOS_INSTALL,
@@ -74,6 +98,7 @@ from minpaxos_tpu_torch.obs.watch import (
     EV_STORE_CORRUPT,
     EV_TRUNCATE,
     EventJournal,
+    event_chrome_events,
 )
 from minpaxos_tpu_torch.ops.kvstore import LIVE, kv_insert_unique
 from minpaxos_tpu_torch.ops.packed import join_i64, split_i64
@@ -149,8 +174,9 @@ class _InflightTick:
     """One dispatched tick's host-phase inputs, already read back. The
     pipeline completes them at once (serial order, -nopipeline or an
     empty queue) or one dispatch later, between the next dispatch's
-    enqueue and its readback. The matrices are views of a pinned host
-    buffer that the dispatch after next reuses."""
+    enqueue and its readback (the hidden wall is the recorder row's
+    ``overlap_us``). The matrices are views of a pinned host buffer
+    that the dispatch after next reuses."""
 
     cols: dict            # this tick's drained inbox columns
     n_rows: int
@@ -158,15 +184,20 @@ class _InflightTick:
     exec_mats: np.ndarray  # [k, 6, E] stacked exec matrices
     scals: np.ndarray     # [k, N_SCAL] per-substep scalar vectors
     k: int
+    kind: int             # recorder regime (KIND_FULL/FUSED/NARROW)
     persist: bool
     dispatch: bool
     frontier: int         # final (substep k-1) committed frontier
+    backlog: int          # frontier - executed after the tick
     rows_out: int
     peer_commits: np.ndarray | None  # state's [R] vector (non-mencius)
     snap: dict            # the snapshot published at this readback
     drain_us: int
     enqueue_us: int
     readback_us: int
+    t_rb_ns: int          # monotonic_ns at readback (trace anchoring)
+    coal_occ: int = 0     # rows the ingress coalescer batched for this tick
+    coal_wake: int = 0    # cumulative coalescer wakeup kicks at this tick
 
 
 class FatalReplicaError(RuntimeError):
@@ -212,6 +243,16 @@ class RuntimeFlags:
     # chase committed-but-unexecuted slots with follow-up dispatches in
     # the same wakeup
     overlap_exec: bool = True
+    # flight recorder (obs/recorder.py): one ring row per dispatch and
+    # per idle skip, served by the trace verb (-norecorder, -recring)
+    recorder: bool = True
+    recorder_ring: int = 4096
+    # paxtrace (obs/trace.py): stage spans of 1 command in
+    # 2^trace_pow2, served by the tracespans verb; 0 traces every
+    # command (-notrace, -tracepow2, -tracering)
+    trace: bool = True
+    trace_pow2: int = 4
+    trace_ring: int = 4096
     # snapshot + truncation policy of the stable store
     snapshots: bool = True
     snap_every_bytes: int = 8 << 20
@@ -308,6 +349,20 @@ class ReplicaServer:
         if self.dev.type == "cuda":
             m.fn_gauge("max_memory_allocated",
                        lambda: torch.cuda.max_memory_allocated(self.dev))
+        self.recorder = (FlightRecorder(self.flags.recorder_ring)
+                         if self.flags.recorder else None)
+        # paxtrace sink: one per replica, shared with the transport's
+        # reader threads (each thread gets its own ring). It exists
+        # even when disabled, so every site is one `.enabled` test.
+        self.trace_sink = TraceSink(enabled=self.flags.trace,
+                                    sample_pow2=self.flags.trace_pow2,
+                                    ring_capacity=self.flags.trace_ring)
+        m.fn_gauge("trace_spans", self.trace_sink.spans_total)
+        m.fn_gauge("trace_dropped", self.trace_sink.spans_dropped)
+        # sampled proposals awaiting their commit stamp (protocol thread
+        # only): a min-heap of (log slot, cmd_id), so a dispatch pops
+        # only the slots its frontier covered
+        self._trace_slots: list[tuple[int, int]] = []
         self._drain_wait_s = 0.0
         self._drain_work_s = 0.0
         self._last_scals = None  # newest published scalar vector
@@ -324,6 +379,7 @@ class ReplicaServer:
             metrics=self.metrics) if self.flags.coalesce else None)
         self.transport = Transport(me, addrs, inbox_queue=self.coalescer,
                                    metrics=self.metrics)
+        self.transport.trace = self.trace_sink
         # the event journal: one per replica, shared with the transport's
         # reader threads (each writer thread records into its own ring)
         self.journal = EventJournal(capacity=1024)
@@ -373,6 +429,8 @@ class ReplicaServer:
         self._last_step = 0.0
         self._seen_leader = False  # any PREPARE/ACCEPT/COMMIT from a peer
         self._boot_pending: float | None = None  # deferred boot election
+        self._last_elect = 0.0  # the last prepare round's start
+        self._reprepare_s = self.REPREPARE_S
         # control-plane snapshot: a fresh plain dict per readback; other
         # threads read only this, never self.state. work_pending starts
         # True (no "low"/"high" yet): the idle fast path and the narrow
@@ -706,11 +764,34 @@ class ReplicaServer:
                                         dict(zip(SCAL_NAMES,
                                                  scals.tolist()))),
                             "fatal": self.fatal}
+                elif m == "trace":
+                    # the flight recorder as Chrome trace events (pid =
+                    # replica id, so a merged cluster trace keeps one
+                    # track group per replica), the journal beside it
+                    # as instant events on WATCH_PID; "last" bounds the
+                    # rows. -norecorder answers empty but ok.
+                    last = req.get("last")
+                    events = ([] if self.recorder is None else
+                              self.recorder.to_events(
+                                  pid=self.me,
+                                  last=int(last) if last else 1024))
+                    if self.recorder is not None and self.journal.enabled:
+                        events += event_chrome_events(
+                            self.journal.snapshot(), tid=self.me)
+                    resp = {"ok": True, "id": self.me,
+                            "recorder": self.recorder is not None,
+                            "events": events}
                 elif m == "events":
                     # the journal's retained events with the (mono,
                     # wall) clock anchor align_event_collections uses
                     resp = {"ok": True, "id": self.me,
                             "journal": self.journal.collect()}
+                elif m == "tracespans":
+                    # every span ring of this process with the
+                    # monotonic<->wall clock anchor tail aligns
+                    # processes by
+                    resp = {"ok": True, "id": self.me,
+                            "trace": self.trace_sink.collect()}
                 elif m == "chaos":
                     # install / clear / status a fault plan on the live
                     # transport: an attribute swap the reader threads
@@ -818,17 +899,29 @@ class ReplicaServer:
                 prof.disable()
 
     def _wait_for_peers(self, timeout_s: float = 15.0) -> None:
-        deadline = time.monotonic() + timeout_s
+        """Until every peer is connected (or the timeout): the boot
+        election's PREPARE needs the links. A higher-id peer dials us
+        once, at its start; if we were not listening yet that dial was
+        refused and nobody dials again. So a higher-id peer still
+        missing after ``_DIAL_UP_S`` (a peer starting now dials us
+        within it, and two dials crossing would replace each other's
+        connection) is dialed from here too."""
+        t0 = time.monotonic()
+        deadline = t0 + timeout_s
         need = self.cfg.n_replicas - 1
         while time.monotonic() < deadline and not self._stop.is_set():
             n = sum(self.transport.peer_alive(q)
                     for q in range(self.cfg.n_replicas) if q != self.me)
             if n >= need:
                 return
-            for q in range(self.me):
-                if not self.transport.peer_alive(q):
+            up = self.cfg.n_replicas if time.monotonic() - t0 > self._DIAL_UP_S else self.me
+            for q in range(up):
+                if q != self.me and not self.transport.peer_alive(q):
                     self.transport.dial_peer(q)
             time.sleep(0.05)
+
+    # seconds before the boot wait dials higher-id peers itself
+    _DIAL_UP_S = 1.0
 
     def _ingress_overloaded(self) -> bool:
         """Admission signal for the ingress coalescer, called by the
@@ -877,6 +970,14 @@ class ReplicaServer:
             self._flush_inflight()
             self._c_idle_skips.inc()
             self._c_ticks.inc(tick_inc)
+            if self.recorder is not None:
+                self.recorder.record(
+                    monotonic_ns(), KIND_IDLE_SKIP, 0, 0, 0,
+                    self.snapshot["frontier"], 0,
+                    int(self._drain_work_s * 1e6), 0, 0, 0, 0, 0, 0,
+                    chaos_faults=self.transport.chaos_faults_total(),
+                    coal_wake=(self.coalescer._c_wakeups.value
+                               if self.coalescer is not None else 0))
             self._idle = True
             # beacons and beacon replies may sit in the writers
             self.transport.flush_all()
@@ -884,13 +985,19 @@ class ReplicaServer:
         if elect:
             self._become_leader()
             self._last_elect = time.monotonic()
+            self._reprepare_s = self.REPREPARE_S
         elif (self.snapshot["leader"] == self.me
               and not self.snapshot["prepared"]
-              and time.monotonic() - getattr(self, "_last_elect", 0.0) > 0.5):
+              and time.monotonic() - self._last_elect > self._reprepare_s):
             # the one-shot PREPARE broadcast can be lost; re-run the
-            # prepare round at a fresh ballot until a majority answers
+            # prepare round at a fresh ballot until a quorum answers.
+            # A fresh ballot makes the last round's replies stale, so
+            # each retry waits twice as long as the one before: a round
+            # trip slower than the interval (replicas stepping on a
+            # loaded host) would otherwise restart the round forever
             self._become_leader()
             self._last_elect = time.monotonic()
+            self._reprepare_s = min(2 * self._reprepare_s, self.REPREPARE_MAX_S)
         self._device_tick(self.inbox)
         # exec chase: run the follow-up dispatch(es) in this wakeup
         # while committed slots wait to execute and nothing is queued;
@@ -908,6 +1015,12 @@ class ReplicaServer:
         self._maybe_snapshot()
         self._last_step = time.monotonic()
         self._c_ticks.inc(tick_inc)
+
+    # seconds an elected leader waits for a quorum of prepare replies
+    # before it runs the round again; doubled on every retry, up to the
+    # cap, and back to the base at an election or once prepared
+    REPREPARE_S = 0.5
+    REPREPARE_MAX_S = 4.0
 
     def _maybe_snapshot(self) -> None:
         """Snapshot + truncation policy, rate-limited to 4 Hz; off for
@@ -1022,7 +1135,23 @@ class ReplicaServer:
                 for c in rows["cmd_id"]:
                     self._pending[(conn_id, int(c))] = MsgKind.READ_REPLY
             elif kind == MsgKind.TRACE_CTX:
-                pass  # per-command tracing is not carried over
+                # the client's origin time as the chain's start span,
+                # moved into this replica's monotonic domain (wall
+                # minus our wall-mono offset). Filtered through our own
+                # sampling exponent: a client sampling more than the
+                # cluster degrades to the intersection.
+                if self.trace_sink.enabled and len(rows):
+                    m = self.trace_sink.sampled(rows["cmd_id"])
+                    if m.any():
+                        ring = self.trace_sink.ring()
+                        my_off = time.time_ns() - monotonic_ns()
+                        take = rows[m]
+                        for cmd, tid, wall in zip(
+                                take["cmd_id"].tolist(),
+                                take["trace_id"].tolist(),
+                                take["origin_wall_ns"].tolist()):
+                            ring.record(tid, ST_ORIGIN, wall - my_off,
+                                        wall - my_off, cmd)
             elif kind == MsgKind.SNAP_META:
                 # snapshot catch-up announcement: one assembly buffer
                 # per announced frontier ahead of our own
@@ -1061,6 +1190,14 @@ class ReplicaServer:
                     for c in rows["cmd_id"]:
                         self._pending[(conn_id, int(c))] = MsgKind.PROPOSE_REPLY
                     self._c_proposals.inc(len(rows))
+                    if self.trace_sink.enabled and len(rows):
+                        # drain stamp; aux = the dispatch count, so the
+                        # exec stamp's count says how many dispatches
+                        # admission -> execution took
+                        t_dr = monotonic_ns()
+                        self.trace_sink.stamp_batch(
+                            ST_DRAIN, rows["cmd_id"], t_dr, t_dr,
+                            aux=self._c_dispatches.value)
                     if DLOG:
                         dlog(f"replica {self.me}: drain PROPOSE "
                              f"n={len(rows)}")
@@ -1304,6 +1441,7 @@ class ReplicaServer:
         out_mats, exec_mats, scals, pcs = unpack(
             hbuf.numpy()[:, 0], self.cfg.exec_batch, self.cfg.n_replicas)
         t_rb = time.perf_counter()
+        t_rb_ns = monotonic_ns()  # trace anchor of the dispatch phases
         self._c_wall_us.inc(int((t_rb - t0) * 1e6))
         self._c_dispatches.inc()
         self._c_fused_substeps.inc(k)
@@ -1339,6 +1477,8 @@ class ReplicaServer:
             "high": int(last[SCAL_HIGH_ANCHOR]),
             "work_pending": bool(last[SCAL_WORK_PENDING]),
         }
+        if self.snapshot["prepared"]:
+            self._reprepare_s = self.REPREPARE_S
         if self.snapshot["leader"] != prev_leader:
             # the published leader moved: an election landed
             self.journal.record(EV_LEADER_CHANGE,
@@ -1379,14 +1519,25 @@ class ReplicaServer:
             self.journal.record(EV_FATAL, subject=self.me, value=dropped)
             raise FatalReplicaError(self.fatal)
         drain_s, self._drain_work_s = self._drain_work_s, 0.0
+        # the rows the ingress coalescer batched into this tick's drain
+        # and its cumulative wakeup kicks (a chased dispatch reads 0)
+        coal = self.coalescer
+        coal_occ = coal_wake = 0
+        if coal is not None:
+            coal_occ, coal.last_occupancy = coal.last_occupancy, 0
+            coal_wake = coal._c_wakeups.value
         rec = _InflightTick(
             cols=cols, n_rows=n_rows, out_mats=out_mats,
             exec_mats=exec_mats, scals=scals, k=k,
+            kind=(KIND_NARROW if narrow
+                  else KIND_FUSED if k > 1 else KIND_FULL),
             persist=persist, dispatch=dispatch, frontier=frontier_last,
+            backlog=frontier_last - int(last[SCAL_EXECUTED]),
             rows_out=rows_out, peer_commits=pc, snap=self.snapshot,
             drain_us=int(drain_s * 1e6),
             enqueue_us=int((t_enq - t0) * 1e6),
-            readback_us=int((t_rb - t_host) * 1e6))
+            readback_us=int((t_rb - t_host) * 1e6),
+            t_rb_ns=t_rb_ns, coal_occ=coal_occ, coal_wake=coal_wake)
         self._inflight = rec
         if not (self.flags.pipeline and persist and dispatch
                 and not self.queue.empty()):
@@ -1407,7 +1558,11 @@ class ReplicaServer:
         cols, n_rows, k = rec.cols, rec.n_rows, rec.k
         out_mats, exec_mats, scals = rec.out_mats, rec.exec_mats, rec.scals
         ncols = len(batches.COLS)
+        if self.trace_sink.enabled:
+            self._trace_commits(rec)
+        persist_s = dispatch_s = reply_s = 0.0
         if rec.persist:
+            tp = time.perf_counter()
             out0 = {c: out_mats[0][j] for j, c in enumerate(batches.COLS)}
             acked0 = out_mats[0][ncols + 1].astype(bool)
             wrote = self._persist(cols, n_rows, out0, acked0,
@@ -1423,21 +1578,82 @@ class ReplicaServer:
                 # one store flush (fsync under -durable) for all k
                 # substeps, before any frame leaves (flush_all below)
                 self.store.flush()
+            persist_s = time.perf_counter() - tp
         if rec.dispatch:
+            td = time.perf_counter()
             if rec.rows_out:
                 flat = {c: out_mats[:, j, :].reshape(-1)
                         for j, c in enumerate(batches.COLS)}
                 self._dispatch(flat, out_mats[:, ncols, :].reshape(-1))
+            tr = time.perf_counter()
             self._reply_stacked(exec_mats, scals, k, rec.frontier)
+            t_cu = time.perf_counter()
             self._host_catchup(rec.peer_commits, rec.snap)
             self._report_frontier(rec.snap)
             self.transport.flush_all()
+            t_de = time.perf_counter()
+            dispatch_s = (tr - td) + (t_de - t_cu)
+            reply_s = t_cu - tr
+        # one recorder row per dispatch, carrying k (a fused burst is
+        # one wall tick); overlap_us = this tick's host-phase wall run
+        # while the next dispatch was in flight (0 when serial)
         host_s = time.perf_counter() - t_f0
         if overlapped:
             self._c_pipelined.inc()
         step_s = (rec.enqueue_us + rec.readback_us) / 1e6
         self._h_tick.observe((rec.drain_us / 1e6 + step_s + host_s) * 1e3)
         self._h_step.observe(step_s * 1e3)
+        if self.recorder is not None:
+            self.recorder.record(
+                monotonic_ns(), rec.kind, k, n_rows, rec.rows_out,
+                rec.frontier, rec.backlog, rec.drain_us, rec.enqueue_us,
+                rec.readback_us, int(host_s * 1e6) if overlapped else 0,
+                int(persist_s * 1e6), int(dispatch_s * 1e6),
+                int(reply_s * 1e6), rec.t_rb_ns,
+                chaos_faults=self.transport.chaos_faults_total(),
+                coal_occ=rec.coal_occ, coal_wake=rec.coal_wake)
+
+    # -- paxtrace: slot assignment + commit stamps (protocol thread) --
+
+    def _trace_commits(self, rec: _InflightTick) -> None:
+        """Two paxtrace duties per dispatch, both O(sampled): learn the
+        log slot of every sampled proposal this tick admitted (the
+        ACCEPT broadcast at outbox row i carries the slot assigned to
+        inbox PROPOSE row i, the alignment ``_persist`` relies on), and
+        stamp ST_COMMIT, at the tick's readback time, for the tracked
+        slots the tick's frontier covered. The tracked set is a
+        min-heap keyed on slot: slots can sit above the frontier for
+        many dispatches, and a scan of all of them every dispatch would
+        cost the protocol thread under load."""
+        sink = self.trace_sink
+        n = rec.n_rows
+        if n:
+            ik = rec.cols["kind"][:n]
+            pm = ik == int(MsgKind.PROPOSE)
+            if pm.any():
+                ids = rec.cols["cmd_id"][:n]
+                out_kind = rec.out_mats[0, 0, :n]  # col 0 = kind
+                sm = pm & sink.sampled(ids) \
+                    & (out_kind == int(MsgKind.ACCEPT))
+                if sm.any():
+                    out_inst = rec.out_mats[0, 3, :n]  # col 3 = inst
+                    ccol = rec.cols["client_id"][:n]
+                    for i in np.nonzero(sm)[0]:
+                        # READs ride the log as PROPOSE rows; their
+                        # chains never complete, so no commit stamp
+                        if self._pending.get(
+                                (int(ccol[i]), int(ids[i]))) \
+                                == MsgKind.READ_REPLY:
+                            continue
+                        heapq.heappush(self._trace_slots,
+                                       (int(out_inst[i]), int(ids[i])))
+        if self._trace_slots and self._trace_slots[0][0] <= rec.frontier:
+            ring = sink.ring()
+            while self._trace_slots and \
+                    self._trace_slots[0][0] <= rec.frontier:
+                s, cmd = heapq.heappop(self._trace_slots)
+                ring.record(trace_id_for(cmd), ST_COMMIT,
+                            rec.t_rb_ns, rec.t_rb_ns, s)
 
     # -- durability: reconstruct accepted slots from (inbox, outbox) --
 
@@ -1613,11 +1829,19 @@ class ReplicaServer:
                             for i in live]))
         writes: dict[int, tuple[list, list]] = {}
         reads: dict[int, tuple[list, list]] = {}
+        sink = self.trace_sink
+        tracing = sink.enabled
+        traced: list[int] = []
+        t_x0 = monotonic_ns() if tracing else 0
+        # one vectorized sampling hash for the whole pass
+        smask = sink.sampled(cmds) if tracing else None
         for i in np.nonzero(cids >= 0)[0]:
             key = (int(cids[i]), int(cmds[i]))
             want = self._pending.pop(key, None)
             if want is None:
                 continue  # not proposed on this conn (or already replied)
+            if tracing and want != MsgKind.READ_REPLY and smask[i]:
+                traced.append(key[1])  # writes only, as the drain stamps
             book = reads if want == MsgKind.READ_REPLY else writes
             cs_, vs_ = book.setdefault(key[0], ([], []))
             cs_.append(key[1])
@@ -1634,6 +1858,19 @@ class ReplicaServer:
                                cmd_id=np.asarray(cs_, np.int32),
                                val=np.asarray(vs_, np.int64))
             self.transport.send_client(conn, MsgKind.READ_REPLY, frame)
+        if traced:
+            # one exec stamp (commit -> here is the exec-backlog wait;
+            # aux = the dispatch count, closing the drain stamp's) and
+            # one reply-serialization span per sampled command. The
+            # span ends at ``ts``, taken before the sends: a same-host
+            # client can receive a frame before this code runs again,
+            # and a later end would put reply_recv before it.
+            ring = sink.ring()
+            disp = self._c_dispatches.value
+            for cmd in traced:
+                tid = trace_id_for(cmd)
+                ring.record(tid, ST_EXEC, t_x0, t_x0, disp)
+                ring.record(tid, ST_REPLY_SER, t_x0, ts, cmd)
 
     # -- beyond-window catch-up from the durable log --
 

@@ -1,9 +1,10 @@
 """TCP transport: peer mesh + client listener for a replica process.
 
 The port's copy of the JAX package's ``runtime/transport.py``, with its
-fault-injection hook (the ``chaos`` shim, ``chaos/shim.py``) and its
-event-journal records of peer links going up and down; its per-command
-tracing hook is not carried over.
+fault-injection hook (the ``chaos`` shim, ``chaos/shim.py``), its
+event-journal records of peer links going up and down and its
+per-command tracing hook (the ``trace`` sink: reader threads stamp the
+decode span of sampled client proposes).
 
 Counterpart of the reference's genericsmr connection plumbing
 (genericsmr.go:125-400): full TCP mesh where the lower-id replica dials
@@ -28,7 +29,9 @@ import time
 
 import numpy as np
 
+from minpaxos_tpu_torch.obs.trace import ST_DECODE
 from minpaxos_tpu_torch.obs.watch import EV_PEER_DOWN, EV_PEER_UP
+from minpaxos_tpu_torch.utils.clock import monotonic_ns
 from minpaxos_tpu_torch.utils.dlog import dlog
 from minpaxos_tpu_torch.wire.codec import FrameWriter, StreamDecoder
 from minpaxos_tpu_torch.wire.messages import MsgKind
@@ -80,6 +83,11 @@ class Transport:
         # stays monotonic across install/heal cycles.
         self.chaos = None
         self._chaos_retired = 0
+        # paxtrace sink (obs/trace.py): when installed and enabled,
+        # reader threads stamp a frame-decode span for client PROPOSE
+        # frames carrying a sampled command, each into its own ring;
+        # otherwise one attribute load and a test per chunk
+        self.trace = None
         # event journal (obs/watch.py): peer links going up and down,
         # recorded when installed (one attribute load when absent)
         self.journal = None
@@ -338,6 +346,11 @@ class Transport:
                 break
             if not chunk:
                 break
+            # the decode span's t0 covers the frame parse, so the clock
+            # is read before feed, and only when a sink traces
+            tr = self.trace
+            t_dec0 = (monotonic_ns() if tr is not None and tr.enabled
+                      and src_kind == FROM_CLIENT else 0)
             try:
                 frames = dec.feed(chunk)
             except ValueError:
@@ -346,6 +359,11 @@ class Transport:
             conn.frames_in += len(frames)
             for kind, rows in frames:
                 conn.rows_in += len(rows)
+                if t_dec0 and kind == MsgKind.PROPOSE:
+                    # one vectorized hash per propose frame; spans only
+                    # for sampled commands
+                    tr.stamp_batch(ST_DECODE, rows["cmd_id"], t_dec0,
+                                   monotonic_ns())
                 # the fault-injection gate, peer links only: without a
                 # shim one attribute load and an is-None test per frame
                 ch = self.chaos

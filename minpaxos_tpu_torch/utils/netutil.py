@@ -10,9 +10,19 @@ fail at startup with nothing but a silent dead replica to show for it.
 
 from __future__ import annotations
 
+import random
 import socket
 
 CONTROL_OFFSET = 1000
+
+
+def _ephemeral_floor() -> int:
+    """The lowest port the kernel hands to outbound connections."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return 32768
 
 
 def free_ports(n: int, sibling_offset: int = 0) -> list[int]:
@@ -20,10 +30,16 @@ def free_ports(n: int, sibling_offset: int = 0) -> list[int]:
     each returned port p additionally has p + sibling_offset free
     (both are bound during selection, so concurrent callers in other
     processes cannot grab either; the usual bind-then-release TOCTOU
-    window remains, as with any ephemeral-port scheme)."""
+    window remains). Ports are drawn from below the kernel's ephemeral
+    range while it leaves room: a port inside it can be taken between
+    selection and the server's bind by any outbound connection of the
+    host (a long-lived one held a control port past its 10 s bind
+    retry); the kernel's own choice is the fallback."""
     held: list[socket.socket] = []
     ports: list[int] = []
     tries = 0
+    hi = _ephemeral_floor() - 1 - sibling_offset
+    rng = random.Random()
     try:
         while len(ports) < n:
             tries += 1
@@ -31,8 +47,9 @@ def free_ports(n: int, sibling_offset: int = 0) -> list[int]:
                 raise OSError(f"could not find {n} free port"
                               f"(+{sibling_offset}) pairs")
             s = socket.socket()
+            want = rng.randint(10000, hi) if hi > 10000 and tries <= 40 * n else 0
             try:
-                s.bind(("127.0.0.1", 0))
+                s.bind(("127.0.0.1", want))
             except OSError:
                 s.close()
                 continue

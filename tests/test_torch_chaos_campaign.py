@@ -148,3 +148,39 @@ def test_live_stats_carry_every_watched_metric(harness):
     assert sample["replicas"]["0"]["elections"] >= 1
     assert sample["replicas"]["0"]["events"] >= 1  # its election, at least
     assert sample["hist_total"] > 0
+
+
+def test_crash_victim_stores_its_slots_before_the_kill(tmp_path, monkeypatch):
+    """The crash schedule's clock starts once the load is live on every
+    replica: with the victim's inbound links slow from boot (every frame
+    from its peers delayed 0.6 s, longer than the schedule's kill
+    offset), the victim still holds committed slots when it is killed,
+    so its restart recovers from its store and journals the recovery."""
+    from minpaxos_tpu_torch.chaos import campaign
+    from minpaxos_tpu_torch.chaos.plan import FaultPlan
+    from minpaxos_tpu_torch.chaos.shim import ChaosShim
+
+    events = campaign.build_schedule("crash_restart_heal", 1009, 3)
+    victim = next(p["rid"] for _, op, p in events if op == "kill")
+    assert events[0][0] < 0.6  # the kill's offset is shorter than the delay
+
+    class SlowVictim(campaign.ChaosCluster):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            plan = FaultPlan(self.n, seed=5)
+            for src in range(self.n):
+                if src != victim:
+                    plan.set_link(src, victim, delay_s=0.6)
+            s = self.servers[victim]
+            s.transport.set_chaos(ChaosShim(victim, plan, s.queue))
+
+    monkeypatch.setattr(campaign, "ChaosCluster", SlowVictim)
+    shape = campaign.SCHEDULE_SHAPES["crash_restart_heal"]
+    cap = {}
+    r = campaign.run_schedule("crash_restart_heal", 1009, device="cpu",
+                              store_dir=str(tmp_path), capture=cap, log=lambda *_: None,
+                              ops_n=250, durable=shape["durable"], flags=shape.get("flags"))
+    assert r["cluster_events"].get("recovery", 0) >= 1, r["cluster_events"]
+    assert r["acked"] == r["expected"] > 0 and r["duplicates"] == 0
+    assert r["check"]["ok"] and r["converged"], r["check"]
+    hold_to_reference(str(tmp_path), 3, cap["replies"], cap["workload"])

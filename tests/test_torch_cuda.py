@@ -1073,3 +1073,87 @@ def test_mc_chunk_at_the_largest_smoke_batch(dev, protocol):
     keys = [k for k in kvstore._SCRATCH
             if k[0].startswith("cuda") and k[1:] == (cfg.exec_batch, 1 << cfg.kv_pow2)]
     assert len(keys) == 1
+
+
+# ---- paxtrace and the flight recorder around a server on the card ----
+
+
+def _serve_on_the_card(dev, tmp, observe: bool):
+    """A master and three durable MinPaxos servers in this process, their
+    steps on the card, the recorder and paxtrace both on (every command
+    traced) or both off; 300 seeded checked PUTs from one client in
+    batches of 60. Returns the committed records of every store, the
+    replies, the servers' recorder rows and span counts."""
+    from minpaxos_tpu_torch.chaos.campaign import campaign_config
+    from minpaxos_tpu_torch.runtime.client import Client, gen_workload
+    from minpaxos_tpu_torch.runtime.master import Master, _rpc
+    from minpaxos_tpu_torch.runtime.replica import ReplicaServer, RuntimeFlags
+    from minpaxos_tpu_torch.runtime.stable import StableStore
+    from minpaxos_tpu_torch.utils.netutil import CONTROL_OFFSET, free_ports
+
+    import time
+
+    tmp.mkdir()
+    mport = free_ports(1)[0]
+    addrs = [("127.0.0.1", p) for p in free_ports(3, sibling_offset=CONTROL_OFFSET)]
+    master = Master("127.0.0.1", mport, 3, ping_s=0.3)
+    master.start()
+    servers = []
+    try:
+        for i, (host, port) in enumerate(addrs):
+            assert _rpc(("127.0.0.1", mport), {"m": "register", "addr": host,
+                                                "port": port})["id"] == i
+        for i in range(3):
+            flags = RuntimeFlags(durable=True, store_dir=str(tmp), tick_s=0.001,
+                                 device=str(dev), recorder=observe, trace=observe,
+                                 trace_pow2=0)
+            s = ReplicaServer(i, addrs, campaign_config(3), flags)
+            s.start()
+            servers.append(s)
+        deadline = time.monotonic() + 60
+        while not servers[0].snapshot["prepared"]:
+            assert time.monotonic() < deadline, "leader never prepared"
+            time.sleep(0.05)
+        cli = Client(("127.0.0.1", mport), check=True, trace_pow2=0 if observe else None)
+        ops, keys, vals = gen_workload(300, seed=21)
+        st = cli.run_workload(ops, keys, vals, batch=60, timeout_s=120)
+        cli.close_conn()
+        assert st["acked"] == 300 and st["duplicates"] == 0, st
+        deadline = time.monotonic() + 30
+        while min(s.snapshot["frontier"] for s in servers) < \
+                max(s.snapshot["crt_inst"] for s in servers) - 1:
+            assert time.monotonic() < deadline, "cluster never settled"
+            time.sleep(0.05)
+        rows = [None if s.recorder is None else s.recorder.snapshot() for s in servers]
+        spans = [s.trace_sink.spans_total() for s in servers]
+    finally:
+        for s in servers:
+            s.stop()
+        master.stop()
+    stores = []
+    for i in range(3):
+        store = StableStore(f"{tmp}/stable-store-replica{i}", sync=False)
+        try:
+            r = store.read_range(0, store.committed_prefix())
+            stores.append({f: r[f].copy() for f in ("inst", "op", "key", "val", "cmd_id")})
+        finally:
+            store.close()
+    return stores, {c: v["val"] for c, v in cli.replies.items()}, rows, spans
+
+
+def test_recorder_and_tracing_leave_a_card_server_unchanged(dev, tmp_path):
+    """The same seeded workload through servers stepping on the card with
+    the recorder and paxtrace on (every command traced) and with both
+    off gives the same committed stores and the same replies; on, every
+    server recorded dispatch rows and the leader stamped spans."""
+    on = _serve_on_the_card(dev, tmp_path / "on", True)
+    off = _serve_on_the_card(dev, tmp_path / "off", False)
+    for a, b in zip(on[0], off[0]):
+        assert a.keys() == b.keys()
+        for f in a:
+            assert np.array_equal(a[f], b[f]), f
+    assert len(on[0][0]["inst"]) >= 300
+    assert on[1] == off[1] and len(on[1]) == 300
+    assert all(r is not None and len(r) > 0 for r in on[2])
+    assert off[2] == [None, None, None] and off[3] == [0, 0, 0]
+    assert on[3][0] >= 5 * 300

@@ -28,6 +28,7 @@ def _port_files():
     yield os.path.join(ROOT, "k5_ab.py")
     yield os.path.join(ROOT, "profile_ab.py")
     yield os.path.join(ROOT, "k7_host.py")
+    yield os.path.join(ROOT, "trace_ab.py")
 
 
 def _modules():
@@ -45,7 +46,7 @@ def test_every_module_imports_with_jax_blocked():
         "sys.modules['minpaxos_tpu'] = None\n"
         f"sys.path.insert(0, {ROOT!r})\n"
         "import importlib\n"
-        f"for name in {sorted(_modules())!r} + ['chip_smoke', 'wall_ab', 'profile_ab', 'k7_host']:\n"
+        f"for name in {sorted(_modules())!r} + ['chip_smoke', 'wall_ab', 'profile_ab', 'k7_host', 'trace_ab']:\n"
         "    importlib.import_module(name)\n"
         "print('ok')\n")
     env = dict(os.environ)
@@ -190,9 +191,18 @@ def test_server_defaults_to_the_card():
     assert RuntimeFlags().device == "cuda"
     with pytest.raises(RuntimeError, match="cuda"):
         ReplicaServer(0, [("127.0.0.1", 1)])
-    for flag in ("-platform", "-norecorder", "-notrace", "-nowatch"):
+    for flag in ("-platform", "-nowatch"):
         with pytest.raises(SystemExit):
             build_parser().parse_args([flag] if flag != "-platform" else [flag, "cpu"])
+    # the recorder and paxtrace flags, with the JAX package's defaults
+    args = build_parser().parse_args([])
+    assert (args.norecorder, args.notrace, args.tracepow2, args.tracering,
+            args.recring) == (False, False, 4, 4096, 4096)
+    f = RuntimeFlags()
+    assert (f.recorder, f.trace, f.trace_pow2, f.trace_ring, f.recorder_ring) == (
+        True, True, 4, 4096, 4096)
+    args = build_parser().parse_args(["-norecorder", "-notrace", "-tracepow2", "0"])
+    assert args.norecorder and args.notrace and args.tracepow2 == 0
 
 
 def test_pack_outputs_never_falls_back_for_non_cpu_tensors():
@@ -280,4 +290,14 @@ def test_chaos_and_watch_modules_are_walked():
     walked = set(_modules())
     for name in ("chaos", "chaos.plan", "chaos.shim", "chaos.check", "chaos.campaign",
                  "obs.watch", "cli.chaos"):
+        assert f"minpaxos_tpu_torch.{name}" in walked, name
+
+
+def test_trace_and_recorder_modules_are_walked():
+    """paxtrace, the flight recorder and the tail CLI are among those
+    imported with JAX blocked above (and so import nothing of the JAX
+    package)."""
+    walked = set(_modules())
+    for name in ("obs.trace", "obs.recorder", "obs.watch", "cli.tail",
+                 "runtime.master", "parallel.sharded"):
         assert f"minpaxos_tpu_torch.{name}" in walked, name

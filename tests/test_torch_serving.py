@@ -33,7 +33,7 @@ class Harness:
     """A port master + N port replica servers on fresh localhost ports."""
 
     def __init__(self, tmp_path, n=3, durable=False, classic=False,
-                 mencius=False, cfg_overrides=None):
+                 mencius=False, cfg_overrides=None, flags=None):
         self.protocol = ("mencius" if mencius
                          else "classic" if classic else "minpaxos")
         self.tmp_path = tmp_path
@@ -51,6 +51,7 @@ class Harness:
         self.cfg = MinPaxosConfig(n_replicas=n, explicit_commit=classic,
                                   **{**SMALL, **(cfg_overrides or {})})
         self.durable = durable
+        self.flags = flags or {}  # extra RuntimeFlags fields, every replica
         self.servers: dict[int, ReplicaServer] = {}
         for i in range(n):
             self.start_replica(i)
@@ -72,7 +73,7 @@ class Harness:
 
     def start_replica(self, i) -> None:
         flags = RuntimeFlags(durable=self.durable, store_dir=str(self.tmp_path),
-                             tick_s=0.001, device="cpu")
+                             tick_s=0.001, device="cpu", **self.flags)
         s = ReplicaServer(i, self.addrs, self.cfg, flags, protocol=self.protocol)
         s.start()
         self.servers[i] = s
@@ -293,8 +294,9 @@ def test_jax_package_client_drives_port_cluster(harness):
 
 
 def test_control_verbs(harness):
-    """ping, stats, chaos (status), events and be_the_leader on a port
-    replica's control port; other verbs answer an error."""
+    """ping, stats, chaos (status), events, trace, tracespans and
+    be_the_leader on a port replica's control port; other verbs (the
+    JAX package's ``phase``, not carried over) answer an error."""
     h = harness()
 
     def rpc(req):
@@ -309,7 +311,11 @@ def test_control_verbs(harness):
     assert rpc({"m": "chaos", "op": "no_such_op"})["ok"] is False
     ev = rpc({"m": "events"})
     assert ev["ok"] and ev["id"] == 1 and "anchor" in ev["journal"]
-    assert rpc({"m": "tracespans"})["ok"] is False
+    tr = rpc({"m": "trace", "last": 8})
+    assert tr["ok"] and tr["recorder"] is True and tr["events"]
+    sp = rpc({"m": "tracespans"})
+    assert sp["ok"] and sp["trace"]["enabled"] and "anchor" in sp["trace"]
+    assert rpc({"m": "phase"})["ok"] is False
     assert rpc({"m": "be_the_leader"})["ok"]
     h.wait(lambda: h.servers[1].snapshot["leader"] == 1
            and h.servers[1].snapshot["prepared"], 20, "promotion never landed")
@@ -395,3 +401,49 @@ def test_master_waits_out_boot_and_missed_pings():
         m.stop()
         for f in fakes:
             f.close()
+
+
+@pytest.mark.parametrize("case", ["sibling_reserved", "collision_skipped",
+                                  "impossible_raises", "below_ephemeral"])
+def test_free_ports(case):
+    """The JAX package's ``free_ports`` cases on the port's copy, and
+    ports drawn from below the kernel's ephemeral range (an outbound
+    connection cannot take one between selection and a server's bind)."""
+    import socket
+
+    from minpaxos_tpu_torch.utils.netutil import _ephemeral_floor
+
+    if case == "sibling_reserved":
+        ports = free_ports(3, sibling_offset=CONTROL_OFFSET)
+        assert len(set(ports)) == 3
+        for p in ports:
+            for q in (p, p + CONTROL_OFFSET):
+                s = socket.socket()
+                try:
+                    s.bind(("127.0.0.1", q))
+                finally:
+                    s.close()
+    elif case == "collision_skipped":
+        # hold the sibling of a port the allocator could hand out (a
+        # candidate's sibling can be taken again before this bind: try
+        # the next one)
+        held = socket.socket()
+        for cand in free_ports(8, sibling_offset=CONTROL_OFFSET):
+            try:
+                held.bind(("127.0.0.1", cand + CONTROL_OFFSET))
+                break
+            except OSError:
+                continue
+        try:
+            blocked = held.getsockname()[1] - CONTROL_OFFSET
+            for _ in range(20):
+                assert blocked not in free_ports(20, sibling_offset=CONTROL_OFFSET)
+        finally:
+            held.close()
+    elif case == "impossible_raises":
+        with pytest.raises(OSError):
+            free_ports(1, sibling_offset=70000)
+    else:
+        floor = _ephemeral_floor()
+        ports = free_ports(50, sibling_offset=CONTROL_OFFSET)
+        assert all(p + CONTROL_OFFSET < floor for p in ports), (floor, ports)

@@ -415,3 +415,45 @@ def test_stalled_during_fault_equals_the_reference():
             assert _stalled_during_fault(t, samples, m) == ref_fn(t, samples, m)
     assert _stalled_during_fault(t, flat, marks)
     assert not _stalled_during_fault(t, moving, marks)
+
+
+def test_an_alarm_keeps_the_subject_it_was_raised_with():
+    """The isolated-leader run's samples as the campaign's watcher took
+    them on a loaded host (0.26 s apart): every frontier flat with
+    commands in flight (the leader cut off: alarm on replica 0), then
+    the heal, where the first sample catches the leader and replica 2
+    past the next batch and replica 1 one batch behind (a starved
+    minority for one poll), then every replica level. The leader's
+    alarm keeps subject 0 and clears; replica 1's lag is an alarm of
+    its own; the journal's raise and clear rows name the same replica;
+    the campaign's verdict attributes the stall to the leader. (The JAX
+    package's watcher relabels the leader's alarm to replica 1, so the
+    verdict would not.)"""
+    from minpaxos_tpu_torch.chaos.campaign import STALL_SLACK_SLOTS, _stall_verdict
+
+    series = ([_resp({0: -1, 1: -1, 2: -1}), _resp({0: 63, 1: -1, 2: -1}, proposals=128)]
+              + [_resp({0: 63, 1: 63, 2: 63}, proposals=128)] * 7
+              + [_resp({0: 127, 1: 63, 2: 127}, proposals=150),
+                 _resp({0: 149, 1: 127, 2: 127}, proposals=150),
+                 _resp({0: 149, 1: 149, 2: 149}, proposals=210),
+                 _resp({0: 209, 1: 209, 2: 209}, proposals=210)])
+    slo = dict(stall_s=0.6, stall_slack_slots=STALL_SLACK_SLOTS, churn_window_s=5.0,
+               churn_budget=4)
+    w, ref = W.HealthWatcher(slo=W.SLO(**slo)), R.HealthWatcher(slo=R.SLO(**slo))
+    for i, r in enumerate(series):
+        w.poll_once(r, t_wall=100.0 + 0.26 * i)
+        ref.poll_once(r, t_wall=100.0 + 0.26 * i)
+    stall = [a for a in w.alarms if a["detector"] == "frontier_stall"]
+    assert [a["subject"] for a in stall] == [0, 1]
+    assert all(a["t_cleared"] is not None for a in stall)
+    assert stall[0]["t_cleared"] == stall[1]["t_raised"]
+    rows = w.journal.snapshot()
+    raised = rows[rows[:, W.EV_KIND] == W.EV_ALARM][:, W.EV_SUBJECT].tolist()
+    cleared = rows[rows[:, W.EV_KIND] == W.EV_ALARM_CLEAR][:, W.EV_SUBJECT].tolist()
+    assert raised == cleared == [0, 1]
+    marks = [(0.0, 100.45, "install"), (1.8, 102.1, "clear")]
+    v = _stall_verdict(w, marks, expected_subject=0)
+    assert v["fired_in_window"] and v["attributed"] and v["cleared"]
+    # the reference relabelled its one alarm
+    assert [a["subject"] for a in ref.alarms] == [1]
+    assert not _stall_verdict(ref, marks, expected_subject=0)["attributed"]
