@@ -186,7 +186,13 @@ Phases, each printing one JSON line:
               of its slots, the owner revived until it heals to the
               cluster's frontier (heal_s), every key so far read back,
               the replica a single client proposes to SIGKILLed under
-              1,000 PUTs, every PUT acked exactly once; the stores held as in
+              1,000 PUTs, every PUT acked exactly once; before the owner
+              kill, the cede leg (C2, cede_leg): replica 2's inbound link
+              from owner 0 held back by the chaos shim while owner 0
+              cedes its slots on either side of its own PUTs, then healed
+              at once, until replica 2's drain defers a cede range
+              (skips_deferred on the line, above 0 or the phase fails);
+              the stores held as in
               tcp; every server's stop line must show every kernel of
               KERNELS["tcp_mencius"] (K2-K7 with K6 and K7's Mencius
               form, K10 gather_rows). The compare line tcp_mencius holds
@@ -212,6 +218,26 @@ Phases, each printing one JSON line:
               The phase line carries every kernel's launches over the
               runs; any run not ok, a kernel of KERNELS["chaos"] never
               launched, or the phase over CHAOS_LIMIT_S fails it.
+12. swarm   — the soak harness's load side (minpaxos_tpu_torch/soak,
+              runtime/client.py ClientSwarm) on a TcpCluster of the tcp
+              phase's shape (three -min -durable server processes). The
+              closed leg: ClientSwarm, 256 sessions x 8 commands, every
+              command acked once and in the log once, the leader's
+              coalescer woken with a batch-size histogram. The open leg:
+              OpenLoopSwarm, 4,096 sessions over 8 spawned shard workers
+              (no torch in them), the JAX full soak manifest's hot_skew
+              and overload_burst phases (hot_zipf 500 Hz x 10 s with its
+              diurnal swing; write_storm 300 Hz x 12 s, x9 over 0.2-0.45),
+              then a 30 s drain: lost 0, acked_unique == sent_unique, no
+              dead session, every command in the log as its shard's
+              schedule made it, every written key read back through READ
+              frames with the value the log's order gives it and no PUT
+              after the read, the stores equal and check_cluster ok. A
+              swarm_leg line per leg (ops/s, p50/p99/p999, sent, acked,
+              duplicates, lost, the leader's coalesce_admission_rejects
+              and launches, the card), then the phase line with the
+              open-file limit and every server's launches (each must show
+              every kernel of KERNELS["tcp"]); its own limit (SW_LIMIT_S).
 
 With --profile DIR, 4 steady rounds of each resident path after its run
 are traced with torch.profiler into DIR (profile lines: device ms and
@@ -275,6 +301,14 @@ TCP_LIMIT_S = 420.0  # the phase's own time limit
 # PUTs, then the owner leg's, then the proposer leg's; its own limit
 TCP_M_OPS, TCP_M_EXTRA, TCP_M_FAIL = 10000, 2000, 1000
 TCP_M_LIMIT_S = 480.0
+# the tcp_mencius phase's cede leg (C2): replica C2_LAG's inbound link
+# from owner 0 held back C2_HOLD_S by the chaos shim while, C2_TURNS
+# times, C2_BUSY PUTs through owner 1 make owner 0 cede its slots and one
+# PUT through owner 0 takes its next; the heal delivers the held frames
+# at once; up to C2_ROUNDS such holds, until the lagging replica's drain
+# has deferred a cede range
+C2_LAG, C2_HOLD_S, C2_TURNS, C2_BUSY, C2_ROUNDS = 2, 8.0, 4, 8, 3
+C2_OPS = C2_ROUNDS * C2_TURNS * (C2_BUSY + 1)
 WARM = 300  # each TCP leg's warm-up PUTs (cmd_ids 0..299)
 # the trace phase: the tcp cluster's shape with every command traced
 # (-tracepow2 0), TRACE_OPS checked PUTs from a tracing client; a span
@@ -297,6 +331,26 @@ CHAOS_PAIRS = [(1009, "partition_heal"), (2003, "loss_reorder"), (42, "isolated_
 CHAOS_OPS = 250  # the smoke's load size (cli/chaos.py SMOKE_OPS)
 CHAOS_REPLAY = ("mc_broken_quorum_minpaxos.json", 1009)
 CHAOS_LIMIT_S = 120.0
+# the swarm phase: a TcpCluster of the tcp phase's shape (-min -durable
+# TCP_SHAPE). The closed leg: ClientSwarm with SW_SESSIONS sessions of
+# SW_PER commands each (bench_tcp.py's default swarm), gen_workload keys
+# moved up by SW_KEY_OFF. The open leg: OpenLoopSwarm as the JAX
+# package's full soak manifest (soak/scenario.py FULL_MANIFEST) runs it,
+# 4,096 sessions over 8 shards, retransmit 1 s, tracing 1 in 2^6,
+# through that manifest's two fault-free load phases (profile, arrival,
+# seed = the manifest's seed 23 + the phase's index), then a drain. The
+# open leg's keys lie below SW_OPEN_KEYS (the other legs write above it);
+# its read-back's cmd_ids start at SW_READ_BASE; its own limit
+SW_SESSIONS, SW_PER, SW_KEY_OFF = 256, 8, 2_000_000
+SW_OPEN_SESSIONS, SW_SHARDS, SW_RETRANSMIT_S, SW_TRACE_POW2 = 4096, 8, 1.0, 6
+SW_PHASES = (
+    ("hot_zipf", dict(rate_hz=500.0, duration_s=10.0, diurnal_amp=0.3,
+                      diurnal_period_s=10.0), 24),
+    ("write_storm", dict(rate_hz=300.0, duration_s=12.0, burst_x=9.0,
+                         burst_t0_frac=0.2, burst_t1_frac=0.45), 25),
+)
+SW_DRAIN_S, SW_OPEN_KEYS, SW_READ_BASE = 30.0, 1_000_000, 1 << 30
+SW_LIMIT_S = 360.0
 # the mc phase: the kernels each protocol's step launches at the model
 # checker's shapes (S=8, a one-row inbox, exec 4, 2^3 KV ways)
 MC_KERNELS = {
@@ -2669,6 +2723,31 @@ def warm_up(cl: TcpCluster, make_client, wl) -> tuple[int, dict]:
             return runs, replies
 
 
+def read_through(cli, ids, keys, left, batch: int = TCP_BATCH) -> None:
+    """READ frames for ``keys`` under cmd_ids ``ids`` on ``cli``,
+    ``batch`` at a time, until each has its reply in ``cli.replies``
+    (``left()``: seconds left). Reads a replica bounced are sent again
+    (after a failover when it named another leader)."""
+    ids, keys = np.asarray(ids), np.asarray(keys)
+    for lo_ in range(0, len(ids), batch):
+        part = np.arange(lo_, min(lo_ + batch, len(ids)))
+        end = time.monotonic() + min(60.0, left())
+        while time.monotonic() < end:
+            need = np.asarray([j for j in part.tolist() if int(ids[j]) not in cli.replies],
+                              np.int64)
+            if not len(need):
+                break
+            n_bounced = len(cli.rejected)
+            cli.read(ids[need], keys[need])
+            if cli.wait(ids[need], timeout_s=min(10.0, left()), held=True):
+                break
+            if (len(cli.rejected) > n_bounced
+                    and cli.leader_hint in (-1, cli.connected_to)):
+                time.sleep(cli.BOUNCE_PAUSE_S)  # no room for them yet
+            else:
+                cli._failover()  # silent, or bounced toward another leader
+
+
 def tcp_read_back(cl: TcpCluster, cli, wl, lo: int, hi: int, last: bool,
                   batch: int = TCP_BATCH) -> tuple[tuple, dict]:
     """Every key the commands [lo, hi) of ``wl`` wrote, read back through
@@ -2691,22 +2770,7 @@ def tcp_read_back(cl: TcpCluster, cli, wl, lo: int, hi: int, last: bool,
     wl = (np.concatenate([wl[0], np.full(len(want_k), int(Op.GET), np.int64)]),
           np.concatenate([wl[1], want_k]),
           np.concatenate([wl[2], np.zeros(len(want_k), np.int64)]))
-    for lo_ in range(0, len(want_k), batch):
-        ids = base + np.arange(lo_, min(lo_ + batch, len(want_k)))
-        end = time.monotonic() + min(60.0, cl.left())
-        while time.monotonic() < end:
-            need = np.asarray([i for i in ids.tolist() if i not in cli.replies], np.int64)
-            if not len(need):
-                break
-            n_bounced = len(cli.rejected)
-            cli.read(need, wl[1][need])
-            if cli.wait(need, timeout_s=min(10.0, cl.left()), held=True):
-                break
-            if (len(cli.rejected) > n_bounced
-                    and cli.leader_hint in (-1, cli.connected_to)):
-                time.sleep(cli.BOUNCE_PAUSE_S)  # no room for them yet
-            else:
-                cli._failover()  # silent, or bounced toward another leader
+    read_through(cli, base + np.arange(len(want_k)), want_k, cl.left, batch)
     got = np.asarray([cli.replies.get(int(base + i), {}).get("val", -1)
                       for i in range(len(want_k))], np.int64)
     out = dict(readback_keys=len(want_k),
@@ -3142,6 +3206,47 @@ def trace_phase(tcp_rec: dict, resident_events: list, profile_dir: str | None) -
     return rec
 
 
+def cede_leg(ctl, busy, light, wl, ids, left) -> dict:
+    """C2, F6's gate on a live Mencius cluster: hold replica C2_LAG's
+    inbound link from owner 0 back (a chaos shim delay of C2_HOLD_S)
+    while, C2_TURNS times, ``busy`` (a client on owner 1) commits
+    C2_BUSY PUTs, so owner 0 cedes its slots below them, and ``light``
+    (a client on owner 0) proposes one PUT into owner 0's next slot.
+    Owner 0's cede ranges on either side of its proposal queue in the
+    shim; the heal delivers them at once, so one drain of the lagging
+    replica holds both and must defer the second (``skips_deferred``).
+    Up to C2_ROUNDS holds, until it has. ``ctl(i, req)``: replica i's
+    control port; ``ids``: C2_OPS cmd_ids of ``wl`` (ops, keys, vals);
+    ``left()``: seconds left. Returns the leg's acks and the counter."""
+    from minpaxos_tpu_torch.chaos import FaultPlan
+
+    plan = FaultPlan(TCP_N).set_link(0, C2_LAG, delay_s=C2_HOLD_S).to_dict()
+    it = iter(np.asarray(ids).tolist())
+    acked, mine, rounds, deferred = 0, [], 0, 0
+    while rounds < C2_ROUNDS and not deferred:
+        rounds += 1
+        if not ctl(C2_LAG, {"m": "chaos", "op": "install", "plan": plan})["ok"]:
+            raise RuntimeError("the chaos shim was not installed")
+        for _ in range(C2_TURNS):
+            part = np.asarray([next(it) for _ in range(C2_BUSY)])
+            acked += busy.run_partition(part, *wl, batch=C2_BUSY,
+                                        timeout_s=min(60.0, left()))["acked"]
+            one = np.asarray([next(it)])
+            light.propose(one, *(a[one] for a in wl))
+            mine.append(int(one[0]))
+        ctl(C2_LAG, {"m": "chaos", "op": "clear"})
+        if not light.wait(mine, timeout_s=min(60.0, left())):
+            raise TimeoutError("owner 0's PUTs were not acked after the heal")
+        end = time.monotonic() + min(5.0, left())
+        while time.monotonic() < end and not deferred:
+            deferred = int(ctl(C2_LAG, {"m": "ping"})["stats"]["skips_deferred"])
+            time.sleep(0.05)
+    return dict(cede_leg_rounds=rounds, cede_leg_acked=acked + len(mine),
+                cede_leg_sent=rounds * C2_TURNS * (C2_BUSY + 1),
+                cede_leg_duplicates=busy.dup_replies + light.dup_replies,
+                skips_deferred=deferred)
+
+
 def tcp_mencius_path(seed: int) -> dict:
     """The Mencius TCP deployment (bench_tcp.py's
     mencius_tcp_3rep_durable): a master and three durable Mencius
@@ -3169,9 +3274,11 @@ def tcp_mencius_path(seed: int) -> dict:
     try:
         cl.boot()
         maddr = ("127.0.0.1", cl.mport)
-        wl = tcp_workload((TCP_M_OPS, 52), (TCP_M_EXTRA, 53), (TCP_M_FAIL, 54))
+        wl = tcp_workload((TCP_M_OPS, 52), (TCP_M_EXTRA, 53), (C2_OPS, 55),
+                          (TCP_M_FAIL, 54))
         o2, o3 = WARM + TCP_M_OPS, WARM + TCP_M_OPS + TCP_M_EXTRA
-        n_all = o3 + TCP_M_FAIL
+        o4 = o3 + C2_OPS
+        n_all = o4 + TCP_M_FAIL
         warm_runs, replies = warm_up(cl, lambda: MultiClient(maddr, check=True, mode="rr"),
                                      wl)
         rec.update(boot_s=time.monotonic() - cl.t0, warmup_runs=warm_runs)
@@ -3183,6 +3290,17 @@ def tcp_mencius_path(seed: int) -> dict:
         rec.update(acked=st1["acked"], duplicates=st1["duplicates"], wall_s=wall,
                    ops_per_s=st1["acked"] / wall,
                    p50_latency_ms=_pctl(lat, 50), p99_latency_ms=_pctl(lat, 99))
+        # the cede leg (C2): owner 0 cedes around its proposals while
+        # replica C2_LAG's link from it is held back
+        busy, light = Client(maddr, check=True), Client(maddr, check=True)
+        busy.connect(1)
+        light.connect(0)
+        t_leg = time.monotonic()
+        rec.update(cede_leg(cl.ctl, busy, light, wl, np.arange(o3, o4), cl.left),
+                   cede_leg_s=time.monotonic() - t_leg)
+        for c in (busy, light):
+            c.close_conn()
+            replies.update(c.replies)
         # the owner leg: the highest id is not the master's hint
         hint = int(cl.master_rpc({"m": "get_leader"})["leader"])
         owner = max(i for i in range(TCP_N) if i != hint)
@@ -3202,7 +3320,7 @@ def tcp_mencius_path(seed: int) -> dict:
         # read back while every owner lives: with one dead, each slot of
         # its interleaved slots waits for a takeover sweep
         t_leg = time.monotonic()
-        wl, rb = tcp_read_back(cl, mc.clients[0], wl, WARM, o3, last=False,
+        wl, rb = tcp_read_back(cl, mc.clients[0], wl, WARM, o4, last=False,
                                batch=TCP_BATCH // TCP_N)
         rec.update(rb, readback_s=time.monotonic() - t_leg)
         mc.close()
@@ -3213,7 +3331,7 @@ def tcp_mencius_path(seed: int) -> dict:
         cli.connect()
         victim = cli.connected_to
         t_leg = time.monotonic()
-        st3 = kill_under_load(cl, cli, np.arange(o3, n_all), wl, victim, cl.left())
+        st3 = kill_under_load(cl, cli, np.arange(o4, n_all), wl, victim, cl.left())
         after = [t for t, who, _ in cli.served if who != victim and t > st3["t_kill"]]
         rec.update(killed_proposer=victim, proposer_leg_acked=st3["acked"],
                    proposer_leg_duplicates=st3["duplicates"],
@@ -3257,10 +3375,295 @@ def tcp_mencius_path(seed: int) -> dict:
             bad.append(f"{leg}{rec[acked]}/{n} acked, {rec[dups]} duplicates")
     if rec["failover_s"] is None:
         bad.append("no ack served by another replica after the proposer's kill")
+    if rec["cede_leg_acked"] != rec["cede_leg_sent"] or rec["cede_leg_duplicates"]:
+        bad.append(f"cede leg {rec['cede_leg_acked']}/{rec['cede_leg_sent']} acked, "
+                   f"{rec['cede_leg_duplicates']} duplicates")
+    if not rec["skips_deferred"]:
+        bad.append(f"the cede leg left skips_deferred at 0 on replica {C2_LAG} "
+                   f"after {rec['cede_leg_rounds']} holds")
     bad += store_faults(rec)
     bad += stop_faults(stops, "tcp_mencius")
     if bad:
         fail("tcp_mencius", "; ".join(bad))
+    return rec
+
+
+def swarm_log_check(rec, tables, reads: dict | None = None) -> dict:
+    """Hold one replica's committed log ``rec`` (slot order, complete
+    from slot 0) to an open-loop swarm's schedule. ``tables``: per
+    shard, the (ops, keys, vals) it injected, row j as cmd_id j
+    (``soak/swarm.py phase_rows``, phases concatenated). The swarm's
+    rows are the log's client rows with a key below SW_OPEN_KEYS and a
+    cmd_id below SW_READ_BASE: each must be its cmd_id's row of some
+    shard (op, key and a PUT's value: the log invents nothing), and
+    their distinct (connection, cmd_id) pairs count the swarm's
+    commands in the log (a retransmit that crossed its reply executes
+    twice on its connection: one pair). ``reads``: the read-back's
+    values by cmd_id (from SW_READ_BASE); each must be the value the
+    log's order gives its key at its slot, and no PUT of the swarm may
+    follow a read of its key."""
+    from minpaxos_tpu_torch.wire.messages import Op
+
+    cid, cmd = rec["client_id"].astype(np.int64), rec["cmd_id"].astype(np.int64)
+    op, key, val = rec["op"], rec["key"], rec["val"]
+    client = (cid >= 0) & (op != int(Op.NONE))
+    mine = client & (key < SW_OPEN_KEYS) & (cmd < SW_READ_BASE)
+    match = np.zeros(len(rec), bool)
+    for t_ops, t_keys, t_vals in tables:
+        ok = mine & (cmd < len(t_ops))
+        j = np.where(ok, cmd, 0)
+        match |= ok & (t_ops[j] == op) & (t_keys[j] == key) & (
+            (op != int(Op.PUT)) | (t_vals[j] == val))
+    out = dict(log_rows=len(rec), swarm_rows=int(mine.sum()),
+               swarm_commands=len(set(zip(cid[mine].tolist(), cmd[mine].tolist()))),
+               swarm_unmatched=int((mine & ~match).sum()))
+    if reads is not None:
+        kv: dict[int, int] = {}
+        read_at: dict[int, int] = {}
+        wrong = late = checked = 0
+        for j in range(len(rec)):
+            if not client[j]:
+                continue
+            k = int(key[j])
+            if int(op[j]) == int(Op.PUT):
+                kv[k] = int(val[j])
+                late += int(k in read_at and bool(mine[j]))
+            elif int(op[j]) == int(Op.GET) and int(cmd[j]) in reads:
+                checked += 1
+                wrong += int(reads[int(cmd[j])] != kv.get(k, 0))
+                read_at.setdefault(k, j)
+        out.update(reads=len(reads), reads_in_log=checked, reads_wrong=wrong,
+                   puts_after_read=late)
+    return out
+
+
+def hold_swarm_stores(cl: TcpCluster, tables, reads: dict) -> dict:
+    """The stable stores after every stop: committed prefixes agree
+    record for record, the port's check_cluster passes (committed-slot
+    and snapshot agreement), and the most advanced record-complete
+    store's log holds to the open leg's schedule and read-back
+    (swarm_log_check)."""
+    from minpaxos_tpu_torch.verify.invariants import check_cluster
+
+    stores = cl.stores()
+    try:
+        prefixes = [stores[i].committed_prefix() for i in range(TCP_N)]
+        upto = min(prefixes)
+        recs = [stores[i].read_range(0, upto) for i in range(TCP_N)]
+        agree = all(len(r) == upto + 1 for r in recs) and all(
+            np.array_equal(r[f], recs[0][f]) for r in recs[1:]
+            for f in ("inst", "op", "key", "val", "cmd_id", "client_id"))
+        report = check_cluster(stores)
+        best = max(range(TCP_N), key=lambda i: prefixes[i])
+        complete = int(getattr(stores[best], "base", -1)) < 0
+        rec = stores[best].read_range(0, prefixes[best])
+        log = swarm_log_check(rec, tables, reads)
+        closed = (rec["client_id"] >= 0) & (rec["key"] >= SW_KEY_OFF)
+        log.update(closed_rows=int(closed.sum()), closed_commands=len(set(zip(
+            rec["client_id"][closed].tolist(), rec["cmd_id"][closed].tolist()))))
+    finally:
+        for s_ in stores.values():
+            s_.close()
+    return dict(store_committed_prefixes=prefixes, stores_agree=agree,
+                check_cluster_ok=report.ok, check_cluster_slots=report.compared_slots,
+                check_cluster_violations=report.violations[:3], log_complete=complete,
+                **log)
+
+
+def leader_sample(cl: TcpCluster, lead: int) -> dict:
+    """The leader's coalescer counters, batch-size histogram and kernel
+    launches (its ``stats`` verb)."""
+    st = cl.wait_for(lambda: cl.ctl(lead, {"m": "stats"}, timeout=10.0),
+                     f"replica {lead}'s stats", 30)
+    m = st["metrics"]
+    return dict(counters=m.get("counters") or {}, hist=(m.get("histograms") or {}).get(
+        "coalesce_batch_rows") or {}, launches=st.get("launches") or {})
+
+
+def leg_delta(before: dict, after: dict) -> dict:
+    """A leg's share of the leader's coalescer counters and launches."""
+    c0, c1 = before["counters"], after["counters"]
+    return dict(
+        coalesce_wakeups=c1.get("coalesce_wakeups", 0) - c0.get("coalesce_wakeups", 0),
+        coalesce_admission_rejects=(c1.get("coalesce_admission_rejects", 0)
+                                    - c0.get("coalesce_admission_rejects", 0)),
+        coalesce_batch_rows_count=(after["hist"].get("count", 0)
+                                   - before["hist"].get("count", 0)),
+        leader_launches={k: v - before["launches"].get(k, 0)
+                         for k, v in after["launches"].items()
+                         if v > before["launches"].get(k, 0)})
+
+
+def swarm_phase(smi: str) -> dict:
+    """The soak harness's load side on a TcpCluster of the tcp phase's
+    shape: three -min -durable server processes on this card. The
+    closed leg: ClientSwarm, SW_SESSIONS concurrent sessions of SW_PER
+    commands, every command acked exactly once, the leader's coalescer
+    engaged (wakeups, a batch-size histogram). The open leg:
+    OpenLoopSwarm, SW_OPEN_SESSIONS sessions over SW_SHARDS worker
+    processes (they import no torch), SW_PHASES in turn, then a drain:
+    nothing lost, every injected command acked, no dead session; every
+    key the leg wrote read back through READ frames; every server
+    stopped and the stores held (hold_swarm_stores). A ``swarm_leg``
+    line per leg (ops/s, p50/p99/p999, sent/acked/duplicates/lost, the
+    leader's shed and launches, the card), then the phase line with
+    every server's launches; anything missed, or the phase over
+    SW_LIMIT_S, fails it. The shards' 4,096 sockets all land on the
+    leader: this process raises its open-file limit to its hard limit
+    (the servers inherit it) and prints both."""
+    import resource
+
+    from minpaxos_tpu_torch.runtime.client import Client, ClientSwarm, gen_workload
+    from minpaxos_tpu_torch.soak.swarm import OpenLoopSwarm, phase_rows
+    from minpaxos_tpu_torch.wire.messages import Op
+
+    soft0, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    want = hard if hard != resource.RLIM_INFINITY else max(soft0, 1 << 16)
+    if soft0 != resource.RLIM_INFINITY and soft0 < want:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (want, hard))
+    nofile = resource.getrlimit(resource.RLIMIT_NOFILE)[0]
+    cl = TcpCluster("swarm", ["-min"], SW_LIMIT_S)
+    maddr = ("127.0.0.1", cl.mport)
+    rec: dict = dict(phase="swarm", card=smi, deployment="master + "
+                     f"{TCP_N} MinPaxos replica servers -min -durable " + " ".join(TCP_SHAPE),
+                     nofile_soft_at_start=soft0, nofile_hard=hard, nofile=nofile)
+    stops: dict[str, dict] = {}
+    legs: dict[str, dict] = {}
+    swarm = None
+    try:
+        cl.boot()
+        cl.wait_for(cl.leader_ready, "a prepared leader", 120)
+        warm_runs, _ = warm_up(cl, lambda: Client(maddr, check=True), tcp_workload())
+        lead = cl.wait_for(cl.leader_ready, "a prepared leader", 120) - 1
+        rec.update(boot_s=time.monotonic() - cl.t0, warmup_runs=warm_runs, leader=lead)
+
+        # the closed leg, from a parked leader (its idle fast path has
+        # answered two timer wakeups since the warm-up)
+        ops, keys, vals = gen_workload(SW_SESSIONS * SW_PER, key_range=1000, seed=3)
+        idle0 = cl.ctl(lead, {"m": "ping"})["stats"]["idle_skips"]
+        cl.wait_for(lambda: cl.ctl(lead, {"m": "ping"})["stats"]["idle_skips"] >= idle0 + 2,
+                    "the leader to idle", 30)
+        s0 = leader_sample(cl, lead)
+        cs = ClientSwarm(maddr, sessions=SW_SESSIONS)
+        try:
+            res = cs.run(ops, keys + SW_KEY_OFF, vals, SW_PER, timeout_s=min(120.0, cl.left()))
+        finally:
+            cs.close()
+        lat = res["lat_ms_sorted"]
+        legs["closed"] = dict(
+            sessions=SW_SESSIONS, sent=res["sent"], acked=res["acked"], lost=res["missing"],
+            retransmits=res["retransmits"], rejects=res["rejects"],
+            dead_sessions=res["dead_sessions"], wall_s=res["wall_s"],
+            ops_per_s=res["ops_per_s"], p50_ms=_pctl(lat, 50), p99_ms=_pctl(lat, 99),
+            p999_ms=_pctl(lat, 99.9), **leg_delta(s0, leader_sample(cl, lead)))
+        emit(dict(phase="swarm_leg", leg="closed", card=smi, **legs["closed"]))
+
+        # the open leg
+        s0 = leader_sample(cl, lead)
+        t_leg = time.monotonic()
+        swarm = OpenLoopSwarm(maddr, sessions=SW_OPEN_SESSIONS, shards=SW_SHARDS,
+                              retransmit_s=SW_RETRANSMIT_S, trace_pow2=SW_TRACE_POW2)
+        swarm.start(timeout_s=min(120.0, cl.left()))
+        start_s = time.monotonic() - t_leg
+        runs, lat = [], []
+        for name, arrival, seed in SW_PHASES:
+            r = swarm.run_phase(name, arrival, seed)
+            lat += r["lat_ms_sorted"]
+            runs.append(dict(profile=name, seed=seed, **{k: r[k] for k in (
+                "sent", "acked", "retransmits", "rejects", "duplicates", "outstanding",
+                "behind_max_s", "wall_s")}))
+        r = swarm.drain(SW_DRAIN_S)
+        lat += r["lat_ms_sorted"]
+        runs.append(dict(profile="drain", **{k: r[k] for k in (
+            "acked", "retransmits", "rejects", "duplicates", "outstanding", "wall_s")}))
+        final = swarm.stop()
+        swarm = None
+        wall = sum(x["wall_s"] for x in runs)
+        lat.sort()
+        legs["open"] = dict(
+            sessions=SW_OPEN_SESSIONS, shards=SW_SHARDS, start_s=start_s,
+            sent=final["sent_unique"], acked=final["acked_unique"],
+            duplicates=final["duplicates"], lost=final["lost"],
+            dead_sessions=final["dead_sessions"], wall_s=wall,
+            ops_per_s=final["acked_unique"] / wall, p50_ms=_pctl(lat, 50),
+            p99_ms=_pctl(lat, 99), p999_ms=_pctl(lat, 99.9),
+            traced_shards=len(final["traces"]), phases=runs,
+            **leg_delta(s0, leader_sample(cl, lead)))
+        # every key the leg wrote, read back through READ frames
+        per_phase = [phase_rows(name, arrival, seed, SW_SHARDS)
+                     for name, arrival, seed in SW_PHASES]
+        tables = [tuple(np.concatenate([ph[sh][1 + j] for ph in per_phase])
+                        for j in range(3)) for sh in range(SW_SHARDS)]
+        written = np.unique(np.concatenate([t[1][t[0] == int(Op.PUT)] for t in tables]))
+        # a quiet log first: a retransmit that crossed its reply may
+        # still be committing a second time
+        quiet = [cl.frontier(lead)]
+
+        def settled():
+            time.sleep(0.5)
+            quiet.append(cl.frontier(lead))
+            return quiet[-1] == quiet[-2]
+
+        cl.wait_for(settled, "the leader's frontier to settle", 60)
+        reader = Client(maddr, check=True)
+        reader.connect()
+        t_rd = time.monotonic()
+        read_through(reader, SW_READ_BASE + np.arange(len(written)), written, cl.left)
+        reads = {int(c): int(v["val"]) for c, v in reader.replies.items()}
+        reader.close_conn()
+        legs["open"].update(readback_keys=len(written), readback_replies=len(reads),
+                            readback_s=time.monotonic() - t_rd)
+        emit(dict(phase="swarm_leg", leg="open", card=smi, **legs["open"]))
+        stops = stop_all(cl)
+        rec.update(hold_swarm_stores(cl, tables, reads))
+    finally:
+        if swarm is not None:
+            swarm.kill()
+        cl.close()
+    rec.update(legs={k: {f: v.get(f) for f in (
+        "sent", "acked", "duplicates", "lost", "ops_per_s", "p50_ms", "p99_ms", "p999_ms",
+        "coalesce_admission_rejects")} for k, v in legs.items()},
+        closed_reexecuted=rec.get("closed_rows", 0) - rec.get("closed_commands", 0),
+        open_reexecuted=rec.get("swarm_rows", 0) - rec.get("swarm_commands", 0),
+        servers={k: {f: v.get(f) for f in (
+            "dispatches", "fused_substeps", "executed", "wall_ms_per_dispatch",
+            "device_span_ms_per_dispatch", "max_memory_allocated", "launches", "fatal")}
+            if v else None for k, v in stops.items()},
+        phase_s=time.monotonic() - cl.t0)
+    rec["launches"] = sum_launches(stops)
+    emit(rec)
+    c, o = legs["closed"], legs["open"]
+    bad = []
+    if not c["acked"] == c["sent"] == SW_SESSIONS * SW_PER or c["dead_sessions"]:
+        bad.append(f"closed leg: {c['acked']}/{c['sent']} acked, "
+                   f"{c['dead_sessions']} dead sessions")
+    if rec["closed_commands"] != c["sent"]:
+        bad.append(f"closed leg: {rec['closed_commands']} of {c['sent']} commands in "
+                   "the log")
+    if not (c["coalesce_wakeups"] > 0 and c["coalesce_batch_rows_count"] > 0):
+        bad.append(f"closed leg: the leader's coalescer never engaged "
+                   f"(wakeups {c['coalesce_wakeups']}, batches "
+                   f"{c['coalesce_batch_rows_count']})")
+    if o["lost"] or not o["acked"] == o["sent"] > 0 or o["dead_sessions"]:
+        bad.append(f"open leg: {o['acked']}/{o['sent']} acked, {o['lost']} lost, "
+                   f"{o['dead_sessions']} dead sessions")
+    if rec["swarm_commands"] != o["sent"] or rec["swarm_unmatched"]:
+        bad.append(f"open leg: {rec['swarm_commands']} of {o['sent']} commands in the "
+                   f"log, {rec['swarm_unmatched']} rows no shard sent")
+    if (o["readback_replies"] != o["readback_keys"] or rec["reads_in_log"] != len(reads)
+            or rec["reads_wrong"] or rec["puts_after_read"]):
+        bad.append(f"read-back: {o['readback_replies']}/{o['readback_keys']} replies, "
+                   f"{rec['reads_in_log']} in the log, {rec['reads_wrong']} wrong, "
+                   f"{rec['puts_after_read']} PUTs after a read")
+    if not (rec["stores_agree"] and rec["check_cluster_ok"] and rec["log_complete"]):
+        bad.append(f"stable stores: prefixes {rec['store_committed_prefixes']}, agree "
+                   f"{rec['stores_agree']}, complete {rec['log_complete']}, "
+                   f"check_cluster {rec['check_cluster_violations']}")
+    bad += stop_faults(stops, "tcp")
+    if rec["phase_s"] > SW_LIMIT_S:
+        bad.append(f"the phase took {rec['phase_s']:.1f} s, over its {SW_LIMIT_S:.0f} s limit")
+    if bad:
+        fail("swarm", "; ".join(bad))
     return rec
 
 
@@ -3522,6 +3925,7 @@ def main() -> None:
                                 args.profile)
     recs["tcp_mencius"] = tcp_mencius_path(args.seed)
     recs["chaos"] = chaos_phase(dev, smi)
+    recs["swarm"] = swarm_phase(smi)
 
     # one row per (kernel, path): a kernel's first path's row under the
     # kernel's name, its later paths' as name@path; TCP launches are

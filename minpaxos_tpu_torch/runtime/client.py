@@ -3,9 +3,11 @@ failover retry, exactly-once checking.
 
 The port's copy of the JAX package's ``runtime/client.py`` (``Client``
 with its event journal of failovers and its per-command tracing,
-``MultiClient``, ``gen_workload`` with its legacy knobs; workload
-profiles and the soak swarm are not carried over). It speaks the same
-wire protocol, so it drives a cluster of either package's servers.
+``MultiClient``, ``ClientSwarm``, ``gen_workload`` with its legacy
+knobs and its ``profile=`` hook into ``soak/profiles.py``). It speaks
+the same wire protocol, so it drives a cluster of either package's
+servers. The soak harness's scenario side (the ``phase`` verb, the
+scenario driver and its verdict) is not carried over yet.
 
 Counterpart of the reference's client family:
 ``client`` (closed-loop rounds, conflict-% / Zipfian keys, -check),
@@ -26,6 +28,7 @@ a second slot and bring a second reply.
 
 from __future__ import annotations
 
+import selectors
 import socket
 import threading
 import time
@@ -53,11 +56,24 @@ from minpaxos_tpu_torch.wire.messages import MsgKind, Op, make_batch
 
 def gen_workload(n: int, conflict_pct: int = 0, key_range: int = 100000,
                  zipf_s: float = 0.0, write_pct: int = 100,
-                 seed: int = 42) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+                 seed: int = 42, profile=None,
+                 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Pre-generated request arrays (ops, keys, vals) — the reference
     pre-builds karray/put with conflict-% or Zipfian keys
     (client.go:68-103; seed 42 at :45). The same draws as the JAX
-    package's generator for the same arguments."""
+    package's generator for the same arguments.
+
+    ``profile`` (a ``soak.profiles`` name, dict, or WorkloadProfile)
+    switches to the soak generator family: EXACT finite-support Zipf,
+    read/write mix and value-size envelope, byte-reproducible from
+    ``seed``. The legacy knobs are ignored in that mode (numpy's
+    ``rng.zipf`` here samples the unbounded Zeta distribution — kept
+    for bench continuity, superseded by the profiles)."""
+    if profile is not None:
+        # soak.profiles imports nothing from runtime — no cycle
+        from minpaxos_tpu_torch.soak.profiles import (profile_rows,
+                                                      resolve_profile)
+        return profile_rows(resolve_profile(profile), n, seed)
     rng = np.random.default_rng(seed)
     if zipf_s > 0:
         keys = (rng.zipf(zipf_s, n) - 1) % key_range
@@ -595,3 +611,183 @@ class MultiClient:
         for c in self.clients:
             c._done = True  # stragglers must not resurrect via failover
             c.close_conn()
+
+
+class ClientSwarm:
+    """Many concurrent closed-loop client sessions over ONE selector
+    loop — the ingress-coalescer driver (bench_tcp -swarm).
+
+    Each session is a real TCP connection (its own conn_id on the
+    server, so the coalescer sees genuinely multiplexed ingress) that
+    keeps exactly one command outstanding: propose, wait for the
+    reply, propose the next. A thread per session would be 2×1024
+    threads at the top of the bench range; instead every socket stays
+    blocking (sends are tiny and never fill the kernel buffer) and a
+    single ``selectors`` loop in the calling thread drains replies and
+    re-kicks sessions, so the swarm's own scheduling noise stays out
+    of the measured latency.
+
+    Per-command latency is stamped at write time and read time in the
+    driving thread; the result carries the full sorted distribution so
+    the bench can report any percentile. Commands outstanding longer
+    than ``retransmit_s`` are re-sent with the SAME cmd_id on the same
+    connection (the server drops a re-send of a command it still
+    holds) — this is the recovery path when the coalescer's admission
+    gate sheds rows under overload, so overload degrades to bounded
+    queueing plus retransmit rather than a hung session. A re-send
+    that crosses its reply on the wire commits the command a second
+    time; its reply is a stale echo here, and the log's order holds
+    both executions.
+    """
+
+    def __init__(self, maddr: tuple[str, int], sessions: int = 256,
+                 trace_pow2: int | None = None,
+                 retransmit_s: float = 1.0):
+        self.maddr = maddr
+        self.sessions = sessions
+        self.retransmit_s = retransmit_s
+        self.nodes = get_replica_list(maddr)
+        self.leader = get_leader(maddr)
+        self.trace = (None if trace_pow2 is None else
+                      TraceSink(enabled=True, sample_pow2=trace_pow2))
+        self._socks: list[socket.socket] = []
+
+    def _connect_one(self, rid: int) -> tuple[socket.socket, FrameWriter]:
+        host, port = self.nodes[rid]
+        sock = socket.create_connection((host, port), timeout=5.0)
+        sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        sock.sendall(bytes([int(MsgKind.HANDSHAKE_CLIENT)]))
+        return sock, FrameWriter(sock)
+
+    def trace_collect(self) -> dict | None:
+        return None if self.trace is None else self.trace.collect()
+
+    def close(self) -> None:
+        for s in self._socks:
+            try:
+                s.close()
+            except OSError:
+                pass
+        self._socks = []
+
+    def _send(self, st: dict, cmd: int, ops, keys, vals) -> None:
+        """One single-row PROPOSE (+ TRACE_CTX when sampled) on a
+        session's connection; stamps t_send for the latency probe."""
+        frame = make_batch(MsgKind.PROPOSE,
+                           cmd_id=np.asarray([cmd], np.int32),
+                           op=ops[cmd:cmd + 1], key=keys[cmd:cmd + 1],
+                           val=vals[cmd:cmd + 1],
+                           timestamp=time.monotonic_ns())
+        tr = self.trace
+        if tr is not None and tr.sampled(frame["cmd_id"]).any():
+            t_s0 = monotonic_ns()
+            ctx = make_batch(MsgKind.TRACE_CTX, cmd_id=frame["cmd_id"],
+                             trace_id=trace_id_for(frame["cmd_id"]),
+                             origin_wall_ns=time.time_ns())
+            st["writer"].write(MsgKind.TRACE_CTX, ctx)
+            st["writer"].write(MsgKind.PROPOSE, frame)
+            st["writer"].flush()
+            t_s1 = monotonic_ns()
+            ring = tr.ring()
+            ring.record(int(ctx["trace_id"][0]), ST_SEND, t_s0, t_s1, cmd)
+        else:
+            st["writer"].write(MsgKind.PROPOSE, frame)
+            st["writer"].flush()
+        st["out_cmd"] = cmd
+        st["t_send"] = time.monotonic()
+
+    def run(self, ops, keys, vals, ops_per_session: int,
+            timeout_s: float = 120.0) -> dict:
+        """Drive ``sessions`` closed loops of ``ops_per_session``
+        commands each. Workload row for session s, op i is
+        ``s * ops_per_session + i`` (also its cmd_id — connections have
+        distinct server-side client ids, so the spaces never collide).
+
+        Returns acked/sent/wall_s/ops_per_s plus ``lat_ms_sorted``
+        (one entry per FIRST ack of a command) and retransmit /
+        rejection tallies."""
+        n_total = self.sessions * ops_per_session
+        assert len(ops) >= n_total, "workload smaller than swarm plan"
+        sel = selectors.DefaultSelector()
+        states: list[dict] = []
+        for s in range(self.sessions):
+            sock, writer = self._connect_one(self.leader)
+            self._socks.append(sock)
+            st = {"sock": sock, "writer": writer,
+                  "dec": StreamDecoder(), "next_i": 0, "out_cmd": -1,
+                  "t_send": 0.0, "base": s * ops_per_session,
+                  "dead": False}
+            sel.register(sock, selectors.EVENT_READ, st)
+            states.append(st)
+        lats: list[float] = []
+        acked = retransmits = rejects = dead = 0
+        live = self.sessions
+        # initial kick: every session's first command, all in flight
+        # before the drain loop starts — this is the burst the
+        # coalescer exists to merge
+        for st in states:
+            self._send(st, st["base"], ops, keys, vals)
+            st["next_i"] = 1
+        t0 = time.monotonic()
+        deadline = t0 + timeout_s
+        while live > 0 and time.monotonic() < deadline:
+            events = sel.select(timeout=0.05)
+            now = time.monotonic()
+            t_ns = monotonic_ns()
+            for key, _ in events:
+                st = key.data
+                try:
+                    chunk = st["sock"].recv(1 << 16)
+                except OSError:
+                    chunk = b""
+                if not chunk:
+                    st["dead"] = True
+                    sel.unregister(st["sock"])
+                    live -= 1
+                    dead += 1
+                    continue
+                for kind, rows in st["dec"].feed(chunk):
+                    if kind != MsgKind.PROPOSE_REPLY:
+                        continue
+                    if self.trace is not None and len(rows):
+                        self.trace.stamp_batch(ST_REPLY_RECV,
+                                               rows["cmd_id"], t_ns, t_ns)
+                    for r in range(len(rows)):
+                        cmd = int(rows["cmd_id"][r])
+                        if cmd != st["out_cmd"]:
+                            continue  # stale retransmit echo
+                        if int(rows["ok"][r]) == 0:
+                            rejects += 1  # leader moved: re-offer below
+                            st["t_send"] = 0.0
+                            continue
+                        lats.append((now - st["t_send"]) * 1e3)
+                        acked += 1
+                        st["out_cmd"] = -1
+                        if st["next_i"] < ops_per_session:
+                            self._send(st, st["base"] + st["next_i"],
+                                       ops, keys, vals)
+                            st["next_i"] += 1
+                        else:
+                            live -= 1
+            # retransmit sweep: same cmd_id, same connection — covers
+            # admission-gate drops and leader rejections
+            for st in states:
+                if (st["out_cmd"] >= 0 and not st["dead"]
+                        and now - st["t_send"] > self.retransmit_s):
+                    try:
+                        self._send(st, st["out_cmd"], ops, keys, vals)
+                        retransmits += 1
+                    except OSError:
+                        st["dead"] = True
+                        sel.unregister(st["sock"])
+                        live -= 1
+                        dead += 1
+        wall = time.monotonic() - t0
+        sel.close()
+        lats.sort()
+        return {"sessions": self.sessions, "sent": n_total,
+                "acked": acked, "wall_s": wall,
+                "ops_per_s": acked / wall if wall > 0 else 0.0,
+                "lat_ms_sorted": lats, "retransmits": retransmits,
+                "rejects": rejects, "dead_sessions": dead,
+                "missing": n_total - acked}

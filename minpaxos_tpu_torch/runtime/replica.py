@@ -38,8 +38,10 @@ with the journal beside it. paxtrace (``obs/trace.py``) stamps sampled
 commands' stage spans (origin, drain, commit, exec, reply
 serialization; the transport's readers stamp decode), served by the
 ``tracespans`` verb. Both are host work around the dispatch: neither
-adds a device sync. Not carried over from the JAX package's server:
-the burn-rate admission arm and the ``phase`` control verb.
+adds a device sync. The ``stats`` verb also carries the kernels'
+launches since the warm-up. Not carried over from the JAX package's
+server (the soak harness's scenario side): the burn-rate admission arm
+and the ``phase`` control verb.
 """
 
 from __future__ import annotations
@@ -760,6 +762,7 @@ class ReplicaServer:
                             "executed": snap.get("executed", -1),
                             "work_pending": snap.get("work_pending", True),
                             "metrics": self.metrics.snapshot(),
+                            "launches": self.serving_launches(),
                             "scalars": (None if scals is None else
                                         dict(zip(SCAL_NAMES,
                                                  scals.tolist()))),

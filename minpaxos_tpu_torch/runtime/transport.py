@@ -13,19 +13,26 @@ and the higher-id listens, a 1-byte connection-type handshake
 writers flushed once per batch, reconnect-on-failure both outbound
 (ReconnectToPeer :254-287) and inbound (peerReconnector :377-400).
 
-Threading: reader threads decode frames and enqueue
+Threading: readers decode frames and enqueue
 ``(src_kind, conn_id, kind, rows)`` onto one queue owned by the
 protocol thread; writes happen only from the protocol thread through
 ``send``/``flush_all``. Single-owner by construction — the reference's
-benign data races cannot exist here.
+benign data races cannot exist here. Each peer link has a reader
+thread of its own; every client connection is read by one ``selectors``
+loop (``_client_loop``), where the JAX package starts a thread per
+client connection: a leader serving a swarm of thousands of sessions
+would otherwise run a thread per session, and a host that limits a
+process's threads ends such a process outright.
 """
 
 from __future__ import annotations
 
 import queue
+import selectors
 import socket
 import threading
 import time
+import traceback
 
 import numpy as np
 
@@ -130,6 +137,9 @@ class Transport:
         self._listener: socket.socket | None = None
         self._stop = threading.Event()
         self._last_dial: dict[int, float] = {}
+        # every client connection's reads: one selector, one thread
+        # (started with the listener)
+        self._csel = selectors.DefaultSelector()
 
     def _conns(self) -> list:
         with self._lock:
@@ -201,6 +211,7 @@ class Transport:
         s.listen(64)
         self._listener = s
         threading.Thread(target=self._accept_loop, daemon=True).start()
+        threading.Thread(target=self._client_loop, daemon=True).start()
 
     def connect_peers(self) -> None:
         """Dial every lower-id peer (higher ids dial us); the handshake
@@ -264,6 +275,10 @@ class Transport:
                 c.sock.close()
             except OSError:
                 pass
+        try:
+            self._csel.close()
+        except (OSError, RuntimeError):
+            pass
 
     # -- accept / read --
 
@@ -296,9 +311,11 @@ class Transport:
                     cid = self._next_client
                     self._next_client += 1
                     self.clients[cid] = conn = _Conn(sock)
-                threading.Thread(
-                    target=self._read_loop,
-                    args=(FROM_CLIENT, cid, conn), daemon=True).start()
+                try:
+                    self._csel.register(sock, selectors.EVENT_READ,
+                                        (cid, conn, StreamDecoder()))
+                except (ValueError, RuntimeError):  # stopped meanwhile
+                    sock.close()
             else:
                 sock.close()
         except OSError:
@@ -333,10 +350,42 @@ class Transport:
         if j is not None:
             j.record(EV_PEER_UP, subject=q)
         dlog(f"replica {self.me}: peer {q} connected")
-        threading.Thread(target=self._read_loop,
-                         args=(FROM_PEER, q, conn), daemon=True).start()
+        threading.Thread(target=self._read_loop, args=(q, conn),
+                         daemon=True).start()
 
-    def _read_loop(self, src_kind: int, conn_id: int, conn: _Conn) -> None:
+    def _feed(self, src_kind: int, conn_id: int, conn: _Conn,
+              dec: StreamDecoder, chunk: bytes) -> bool:
+        """Decode one received chunk and enqueue its frames; False once
+        the stream is corrupt (the caller ends the connection)."""
+        # the decode span's t0 covers the frame parse, so the clock
+        # is read before feed, and only when a sink traces
+        tr = self.trace
+        t_dec0 = (monotonic_ns() if tr is not None and tr.enabled
+                  and src_kind == FROM_CLIENT else 0)
+        try:
+            frames = dec.feed(chunk)
+        except ValueError:
+            return False
+        conn.bytes_in += len(chunk)
+        conn.frames_in += len(frames)
+        for kind, rows in frames:
+            conn.rows_in += len(rows)
+            if t_dec0 and kind == MsgKind.PROPOSE:
+                # one vectorized hash per propose frame; spans only
+                # for sampled commands
+                tr.stamp_batch(ST_DECODE, rows["cmd_id"], t_dec0,
+                               monotonic_ns())
+            # the fault-injection gate, peer links only: without a
+            # shim one attribute load and an is-None test per frame
+            ch = self.chaos
+            if ch is not None and src_kind == FROM_PEER:
+                ch.ingest(conn_id, kind, rows)
+            else:
+                self.queue.put((src_kind, conn_id, kind, rows))
+        return dec.error is None
+
+    def _read_loop(self, q: int, conn: _Conn) -> None:
+        """Peer q's reader thread."""
         dec = StreamDecoder()
         sock = conn.sock
         while not self._stop.is_set():
@@ -344,46 +393,52 @@ class Transport:
                 chunk = sock.recv(1 << 16)
             except OSError:
                 break
-            if not chunk:
-                break
-            # the decode span's t0 covers the frame parse, so the clock
-            # is read before feed, and only when a sink traces
-            tr = self.trace
-            t_dec0 = (monotonic_ns() if tr is not None and tr.enabled
-                      and src_kind == FROM_CLIENT else 0)
-            try:
-                frames = dec.feed(chunk)
-            except ValueError:
-                break
-            conn.bytes_in += len(chunk)
-            conn.frames_in += len(frames)
-            for kind, rows in frames:
-                conn.rows_in += len(rows)
-                if t_dec0 and kind == MsgKind.PROPOSE:
-                    # one vectorized hash per propose frame; spans only
-                    # for sampled commands
-                    tr.stamp_batch(ST_DECODE, rows["cmd_id"], t_dec0,
-                                   monotonic_ns())
-                # the fault-injection gate, peer links only: without a
-                # shim one attribute load and an is-None test per frame
-                ch = self.chaos
-                if ch is not None and src_kind == FROM_PEER:
-                    ch.ingest(conn_id, kind, rows)
-                else:
-                    self.queue.put((src_kind, conn_id, kind, rows))
-            if dec.error is not None:
+            if not chunk or not self._feed(FROM_PEER, q, conn, dec, chunk):
                 break
         conn.alive = False
         j = self.journal
-        if (j is not None and src_kind == FROM_PEER
-                and not self._stop.is_set()):
-            j.record(EV_PEER_DOWN, subject=conn_id)  # shutdown is no news
-        self.queue.put((CONN_LOST, conn_id if src_kind == FROM_CLIENT
-                        else -1 - conn_id, None, None))
+        if j is not None and not self._stop.is_set():
+            j.record(EV_PEER_DOWN, subject=q)  # shutdown is no news
+        self.queue.put((CONN_LOST, -1 - q, None, None))
         try:
             sock.close()
         except OSError:
             pass
+
+    def _client_loop(self) -> None:
+        """Every client connection's reads, in one thread: a readable
+        socket is read once per wakeup (a ready socket never blocks),
+        its frames enqueued as a reader thread would; end of stream, a
+        read error or a corrupt frame ends that connection alone."""
+        sel = self._csel
+        while not self._stop.is_set():
+            try:
+                events = sel.select(timeout=0.05)
+            except (OSError, ValueError):
+                return  # the selector was closed by stop()
+            for key, _ in events:
+                cid, conn, dec = key.data
+                try:
+                    chunk = conn.sock.recv(1 << 16)
+                    if chunk and self._feed(FROM_CLIENT, cid, conn, dec, chunk):
+                        continue
+                except OSError:
+                    pass
+                # paxlint: disable=broad-except -- one connection's fault
+                # ends that connection, as its own reader thread's death
+                # would; every other client's reads go on
+                except Exception:
+                    traceback.print_exc()
+                conn.alive = False
+                try:
+                    sel.unregister(conn.sock)
+                except (KeyError, ValueError):
+                    pass
+                self.queue.put((CONN_LOST, cid, None, None))
+                try:
+                    conn.sock.close()
+                except OSError:
+                    pass
 
     # -- write (protocol thread only) --
 

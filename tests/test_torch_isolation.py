@@ -57,6 +57,15 @@ def test_every_module_imports_with_jax_blocked():
     assert out.stdout.strip().endswith("ok")
 
 
+def test_the_walk_covers_the_soak_package():
+    """The import walk above reaches the soak harness's modules."""
+    mods = set(_modules())
+    assert {"minpaxos_tpu_torch.soak", "minpaxos_tpu_torch.soak.profiles",
+            "minpaxos_tpu_torch.soak.swarm"} <= mods
+    files = {os.path.relpath(p, PKG) for p in _port_files()}
+    assert {"soak/__init__.py", "soak/profiles.py", "soak/swarm.py"} <= files
+
+
 def test_no_jax_or_reference_imports_in_the_port():
     bad = []
     for path in _port_files():

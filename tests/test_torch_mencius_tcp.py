@@ -175,3 +175,42 @@ def batches_of(srv, frames, split=True) -> list[dict]:
         srv._drain(0.01)
         out.append(srv.inbox.drain()[0])
     return out
+
+
+def test_f6_gate_fires_on_a_live_cluster(harness, tmp_path):
+    """F6's gate on a live Mencius cluster (C2): replica 2's inbound
+    link from owner 0 held back by the chaos shim while owner 0 cedes
+    its slots on either side of its own proposals (``chip_smoke.py
+    cede_leg``, the tcp_mencius phase's leg). The heal delivers the held
+    frames at once and the lagging replica's drain defers the second
+    cede range; every PUT is acked, every written key reads back, and
+    both packages' invariants hold the stores."""
+    import chip_smoke
+
+    from minpaxos_tpu_torch.runtime.client import Client
+    from minpaxos_tpu_torch.wire.messages import Op
+
+    h = harness(mencius=True)
+    wl = Workload()
+    busy, light = h.client(), h.client()
+    busy.connect(1)
+    light.connect(0)
+    assert wl.run(busy, wl.add(60, seed=39), 60)["acked"] == 60
+    ids = wl.add(chip_smoke.C2_OPS, seed=55)
+    rec = chip_smoke.cede_leg(h.control, busy, light, wl.table, ids, lambda: 60.0)
+    assert rec["skips_deferred"] > 0, rec
+    assert rec["cede_leg_acked"] == rec["cede_leg_sent"], rec
+    assert rec["cede_leg_duplicates"] == 0, rec
+    # every key written so far read back through READ frames (check_cluster
+    # holds each value to the log's order)
+    keys = np.unique(wl.keys[wl.ops == int(Op.PUT)])
+    lo = len(wl.ops)
+    wl.ops = np.concatenate([wl.ops, np.full(len(keys), int(Op.GET), np.int64)])
+    wl.keys = np.concatenate([wl.keys, keys])
+    wl.vals = np.concatenate([wl.vals, np.zeros(len(keys), np.int64)])
+    reader = Client(("127.0.0.1", h.mport), check=True)
+    reader.connect(1)
+    reads = np.arange(lo, len(wl.ops))
+    reader.read(reads, wl.keys[reads])
+    assert reader.wait(reads, timeout_s=30), len(reader.replies)
+    settle_and_hold(h, tmp_path, wl, busy, light, reader)

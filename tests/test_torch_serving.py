@@ -404,12 +404,17 @@ def test_master_waits_out_boot_and_missed_pings():
 
 
 @pytest.mark.parametrize("case", ["sibling_reserved", "collision_skipped",
-                                  "impossible_raises", "below_ephemeral"])
+                                  "impossible_raises", "below_ephemeral",
+                                  "reserved_across_processes"])
 def test_free_ports(case):
-    """The JAX package's ``free_ports`` cases on the port's copy, and
-    ports drawn from below the kernel's ephemeral range (an outbound
-    connection cannot take one between selection and a server's bind)."""
+    """The JAX package's ``free_ports`` cases on the port's copy, ports
+    drawn from below the kernel's ephemeral range (an outbound
+    connection cannot take one between selection and a server's bind),
+    and a port handed out in one process not handed out again in
+    another before its server binds (two harnesses booting at once)."""
     import socket
+    import subprocess
+    import sys
 
     from minpaxos_tpu_torch.utils.netutil import _ephemeral_floor
 
@@ -443,6 +448,17 @@ def test_free_ports(case):
     elif case == "impossible_raises":
         with pytest.raises(OSError):
             free_ports(1, sibling_offset=70000)
+    elif case == "reserved_across_processes":
+        # another process whose every random draw is this port: the port
+        # and its sibling are free on the host, but handed out here
+        (mine,) = free_ports(1, sibling_offset=CONTROL_OFFSET)
+        code = ("import random, sys\n"
+                f"random.Random.randint = lambda self, a, b: {mine}\n"
+                "from minpaxos_tpu_torch.utils.netutil import free_ports\n"
+                f"print(free_ports(1, sibling_offset={CONTROL_OFFSET})[0])\n")
+        out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                             text=True, timeout=60, check=True)
+        assert int(out.stdout) != mine
     else:
         floor = _ephemeral_floor()
         ports = free_ports(50, sibling_offset=CONTROL_OFFSET)
